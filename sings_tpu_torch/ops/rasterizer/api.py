@@ -1,0 +1,144 @@
+"""Rasterizer API, forward (port of sings_tpu/ops/rasterizer/api.py).
+
+rasterize() = preprocess -> bin_gaussians -> _gather_feats ->
+composite_fwd (CUDA kernel on the card, plain version on the CPU) ->
+tile-to-image relayout and crop -> background blend. The composite sits
+in an autograd.Function whose backward raises: its gradient is the
+backward kernel composite_bwd, which comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..graphics import Camera
+from .common import Gaussians2D, preprocess
+from .kernels import NFEAT, composite_fwd
+from .reference import composite_dense
+from .tiles import TileBinning, bin_gaussians
+
+
+class RasterConfig(NamedTuple):
+    height: int
+    width: int
+    tile: int = 16
+    chunk: int = 128
+    max_span: int = 5
+    max_pairs: int | None = None
+    main_width: int = 6
+    tail_capacity: int | None = None
+    cull: bool = True
+    pair_cap: int | None = None
+    # the JAX package's in-kernel cumsum switch; one scan serves both
+    # settings here (same sums, f32 reassociation)
+    scan_roll: bool = False
+    layout: str = "tiled"
+
+
+def _pad_tiles(cfg: RasterConfig):
+    return -(-cfg.width // cfg.tile), -(-cfg.height // cfg.tile)
+
+
+def _gather_feats(binning: TileBinning, means2d, conics, colors, opacities,
+                  chunk: int) -> torch.Tensor:
+    """Sorted-order pair features (NFEAT, PK + chunk); invalid pairs and
+    the chunk-wide tail are zero."""
+    sg = binning.sorted_gauss
+    pk = sg.shape[0]
+    idx = sg.clamp_min(0).long()
+    valid = (sg >= 0)[:, None].to(means2d.dtype)
+    feat = torch.cat([means2d, conics, colors, opacities[:, None]], dim=1)
+    feats = means2d.new_zeros((NFEAT, pk + chunk))
+    feats[:9, :pk] = (feat[idx] * valid).T
+    return feats
+
+
+def prepare_composite(g2d: Gaussians2D, cfg: RasterConfig):
+    """Binning + pair features: the composite kernel's inputs."""
+    ntx, nty = _pad_tiles(cfg)
+    binning = bin_gaussians(
+        g2d, tile=cfg.tile, n_tiles_x=ntx, n_tiles_y=nty,
+        max_span=cfg.max_span, align=cfg.chunk, max_pairs=cfg.max_pairs,
+        main_width=cfg.main_width, tail_capacity=cfg.tail_capacity,
+        cull=cfg.cull, pair_cap=cfg.pair_cap)
+    feats = _gather_feats(binning, g2d.means2d, g2d.conics, g2d.colors,
+                          g2d.opacities, cfg.chunk)
+    return feats, binning
+
+
+def tiles_to_image(out: torch.Tensor, cfg: RasterConfig):
+    """(T, 8, npx) -> colour (3, H, W) and transmittance (H, W)."""
+    ntx, nty = _pad_tiles(cfg)
+    t = cfg.tile
+    color = out[:, :3, :].reshape(nty, ntx, 3, t, t).permute(2, 0, 3, 1, 4)
+    color = color.reshape(3, nty * t, ntx * t)[:, : cfg.height, : cfg.width]
+    t_final = out[:, 3, :].reshape(nty, ntx, t, t).permute(0, 2, 1, 3)
+    t_final = t_final.reshape(nty * t, ntx * t)[: cfg.height, : cfg.width]
+    return color, t_final
+
+
+class _CompositeTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, means2d, conics, colors, opacities, depths,
+                radii, mask):
+        if cfg.layout != "tiled":
+            raise NotImplementedError(
+                f"layout={cfg.layout!r}: only the tiled layout is ported")
+        g2d = Gaussians2D(means2d=means2d, depths=depths, conics=conics,
+                          colors=colors, opacities=opacities, radii=radii,
+                          mask=mask)
+        feats, binning = prepare_composite(g2d, cfg)
+        ntx, nty = _pad_tiles(cfg)
+        out = composite_fwd(feats, binning.tile_offsets, tile=cfg.tile,
+                            chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty)
+        return tiles_to_image(out, cfg)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "rasterize is forward-only: the composite backward "
+            "(composite_bwd kernel) arrives with the training slice")
+
+
+def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
+              *, sh_degree: int = 0, bg: torch.Tensor | None = None,
+              scale_modifier: float = 1.0, alive=None,
+              backend: str = "pallas", tile: int = 16, chunk: int = 128,
+              max_span: int = 5, max_pairs: int | None = None,
+              main_width: int = 6, tail_capacity: int | None = None,
+              cull: bool = True, pair_cap: int | None = None,
+              scan_roll: bool = False, layout: str = "tiled") -> dict:
+    """Gaussian splatting to an image, forward only.
+
+    backend "pallas" (the JAX package's name, kept so callers pass the
+    same keywords): the tiled composite, the CUDA kernel for CUDA
+    tensors. "reference": the dense oracle. Returns {'render' (3, H, W)
+    unclamped, 'radii', 'visibility_filter', 'transmittance', 'means2d'}.
+    """
+    if bg is None:
+        bg = means3d.new_zeros(3)
+    g2d = preprocess(means3d, scales, quats, opacities, features, camera,
+                     sh_degree=sh_degree, scale_modifier=scale_modifier,
+                     alive=alive, tile=tile)
+    if backend == "pallas":
+        cfg = RasterConfig(
+            height=camera.height, width=camera.width, tile=tile,
+            chunk=chunk, max_span=max_span, max_pairs=max_pairs,
+            main_width=main_width, tail_capacity=tail_capacity, cull=cull,
+            pair_cap=pair_cap, scan_roll=scan_roll, layout=layout)
+        color, t_final = _CompositeTiled.apply(
+            cfg, g2d.means2d, g2d.conics, g2d.colors, g2d.opacities,
+            g2d.depths, g2d.radii, g2d.mask)
+        image = color + t_final[None] * bg[:, None, None]
+    elif backend == "reference":
+        image, t_final = composite_dense(g2d, camera.height, camera.width, bg)
+    else:
+        raise ValueError(f"unknown backend {backend}")
+    return {
+        "render": image,
+        "radii": g2d.radii,
+        "visibility_filter": g2d.radii > 0,
+        "transmittance": t_final,
+        "means2d": g2d.means2d,
+    }

@@ -1,0 +1,66 @@
+"""sings_tpu_torch stands alone: importing it and every submodule pulls
+in neither jax nor sings_tpu; entry points want CUDA and say so."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, pkgutil, sys
+import sings_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sings_tpu_torch.__path__,
+                                               "sings_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sings_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_sings_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 25 and bad == "[]", res.stdout
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    from sings_tpu_torch.cli.animate import main
+    from sings_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    (tmp_path / "config_train.yaml").write_text("seed: 0\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-o", str(tmp_path)])
+
+
+def test_train_mode_is_a_later_slice():
+    from sings_tpu_torch.config.core import load_config
+    from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Trainer(load_config(DEFAULTS), mode="train", device="cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Run alone (no port beside it) or without CUDA, it exits non-zero
+    and prints no result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
