@@ -11,10 +11,7 @@
 //   offsets (T + 1,) int32
 //   out     (T, 8, tile*tile) f32: rows 0..2 rgb, 3 T_final, 4..7 zero
 //
-// Rules (_chunk_alpha and the flag / accumulate lines of _fwd_kernel):
-// power = -0.5 (a dx^2 + c dy^2) - b dx dy in tile-local coordinates;
-// alpha = min(0.99, op * exp(power)), skipped when power > 0 or
-// alpha < 1/255; a pair contributes alpha * T only while
+// Rules (composite_common.cuh): a pair contributes alpha * T only while
 // T * (1 - alpha) >= 1e-4. The TPU kernel evaluates that test per
 // chunk-aligned window of `chunk` pairs against the exclusive product
 // of every non-skipped alpha before it in the window, so a failed test
@@ -36,17 +33,20 @@
 // that arithmetic; double-buffered staging (cp.async / TMA) and
 // image-layout output are later work.
 //
-// Built with -fmad=false so products and sums round like the plain
-// PyTorch version, which runs each operation as its own kernel.
+// The alpha and termination arithmetic lives in composite_common.cuh,
+// shared with composite_bwd.cu. Built with -fmad=false so products and
+// sums round like the plain PyTorch version, which runs each operation
+// as its own kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kUsedRows = 9;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using composite::kTEps;
+using composite::kUsedRows;
 
 __global__ void composite_fwd_kernel(const float* __restrict__ feats,
                                      long long stride,
@@ -70,34 +70,21 @@ __global__ void composite_fwd_kernel(const float* __restrict__ feats,
     // also the barrier that keeps the previous window's reads ahead of
     // this window's stores
     if (__syncthreads_count(T >= kTEps) == 0) break;
-    for (int i = p; i < kUsedRows * chunk; i += npx) {
-      const int row = i / chunk;
-      const int idx = win + (i - row * chunk);
-      sm[i] = (idx >= start && idx < end) ? feats[row * stride + idx] : 0.0f;
-    }
+    composite::stage_window(sm, feats, stride, win, start, end, chunk);
     __syncthreads();
     const int lo = max(start - win, 0);
     const int hi = min(end - win, chunk);
     for (int k = lo; k < hi; ++k) {
-      const float mx = sm[k] - ox;
-      const float my = sm[chunk + k] - oy;
-      const float ca = sm[2 * chunk + k];
-      const float cb = sm[3 * chunk + k];
-      const float cc = sm[4 * chunk + k];
-      const float op = sm[8 * chunk + k];
-      const float dx = mx - px;
-      const float dy = my - py;
-      const float power =
-          -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      const float alpha = fminf(0.99f, op * expf(power));
-      if (power > 0.0f || alpha < kAlphaMin) continue;
-      const float test = T * (1.0f - alpha);
-      if (test < kTEps) break;  // done for the rest of this window
-      const float w = alpha * T;
+      composite::PairAlpha a;
+      if (!composite::pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) continue;
+      float t_after;
+      // done for the rest of this window
+      if (!composite::pair_composites(T, a.alpha, &t_after)) break;
+      const float w = a.alpha * T;
       acc_r += w * sm[5 * chunk + k];
       acc_g += w * sm[6 * chunk + k];
       acc_b += w * sm[7 * chunk + k];
-      T = test;
+      T = t_after;
     }
   }
   float* o = out + static_cast<long long>(t) * 8 * npx + p;

@@ -1,4 +1,4 @@
-"""Multi-resolution triplane feature field, forward (port of
+"""Multi-resolution triplane feature field (port of
 sings_tpu/fields/triplane.py).
 
 3 axis-aligned planes x len(multires) scales; bilinear sampling with
@@ -7,7 +7,9 @@ planes of a scale; concatenation over scales. Parameters are the JAX
 pytree {"grids": [[plane_xy, plane_xz, plane_yz], ...]} of (C, H, W)
 tensors.
 
-Two forward paths, as in JAX:
+Gradients are PyTorch autograd of the forward (a scatter-add into the
+grids; the JAX package's custom backward is a sorted segment reduction
+of the same sums). Two forward paths, as in JAX:
   * nested (cfg.nested and power-of-two cell towers): each orientation
     is located once at the finest level; level l's cell is the fine
     cell shifted right by its level shift. This is the row that JAX's

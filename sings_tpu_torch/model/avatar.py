@@ -1,10 +1,12 @@
 """Mesh-anchored gaussian avatar: state + forward (port of
-sings_tpu/model/avatar.py, the animation subset).
+sings_tpu/model/avatar.py).
 
 Per-gaussian arrays live in fixed-capacity buffers with an `alive` mask,
 exactly as in the JAX package, so a JAX checkpoint maps leaf for leaf.
-get_gs_attrs decodes the canonical attributes once; avatar_forward_chunk
-poses B frames with batched LBS.
+get_gs_attrs decodes the canonical attributes; avatar_forward poses one
+frame with every output the training step reads; avatar_forward_chunk
+poses B frames with batched LBS; initial_attr_targets and
+fit_initial_attrs pre-fit the decoders before training.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from ..kinematics.lbs import lbs_extra
 from ..kinematics.template import CanonicalCache, DeviceTemplate, smpl_forward
 from ..mesh.ops import vertex_normals
 from ..ops.rotations import (
-    axis_angle_to_rotation_6d, matrix_to_quaternion, quaternion_multiply,
-    rotation_6d_to_axis_angle, rotation_6d_to_matrix,
+    axis_angle_to_rotation_6d, matrix_to_quaternion, matrix_to_rotation_6d,
+    quaternion_multiply, rotation_6d_to_axis_angle, rotation_6d_to_matrix,
+    rotation_matrix_from_vectors,
 )
 
 
@@ -179,12 +182,18 @@ def init_avatar(generator: torch.Generator, cfg: AvatarConfig,
 
 
 def get_gs_attrs(params: AvatarParams, buffers: AvatarBuffers,
-                 cfg: AvatarConfig) -> dict:
-    """Triplane -> decoders -> canonical gaussian attributes."""
+                 cfg: AvatarConfig, *, opt_geo: bool = True,
+                 opt_app: bool = True) -> dict:
+    """Triplane -> decoders -> canonical gaussian attributes. opt_geo /
+    opt_app False detach the geometry / appearance decoder outputs."""
     feats = triplane_features(params.triplane, params.xyz, cfg.triplane)
     geo = geometry_decoder(params.geometry_dec, feats, cfg.decoder)
     app = appearance_decoder(params.appearance_dec, feats, cfg.decoder,
                              opacity_offset=buffers.opacity_offset)
+    if not opt_geo:
+        geo = {k: None if v is None else v.detach() for k, v in geo.items()}
+    if not opt_app:
+        app = {k: v.detach() for k, v in app.items()}
     scales = geo["scales"]
     thick = torch.ones(3, dtype=scales.dtype, device=scales.device)
     thick[-1] = cfg.thickness_factor
@@ -207,6 +216,26 @@ def get_gs_attrs(params: AvatarParams, buffers: AvatarBuffers,
     }
 
 
+def get_canon_xyz(params: AvatarParams, buffers: AvatarBuffers,
+                  cfg: AvatarConfig) -> torch.Tensor:
+    """Canonical gaussian centres only (triplane + geometry decoder): the
+    input of the chunk-head KNN edge statistic."""
+    feats = triplane_features(params.triplane, params.xyz, cfg.triplane)
+    offsets = geometry_decoder(params.geometry_dec, feats,
+                               cfg.decoder)["xyz_offsets"]
+    if cfg.offset_clamp > 0:
+        offsets = cfg.offset_clamp * torch.tanh(offsets / cfg.offset_clamp)
+    return params.xyz + offsets
+
+
+def _frame_row(x: torch.Tensor, idx) -> torch.Tensor:
+    """x[idx] for a Python int or a tensor index (index_select keeps a
+    device index on the device)."""
+    if isinstance(idx, torch.Tensor):
+        return x.index_select(0, idx.reshape(1).to(x.device))[0]
+    return x[idx]
+
+
 def _canon_rotations(gs_attrs: dict, cfg: AvatarConfig, n: int, like):
     if cfg.isotropic:
         rotmat = torch.eye(3, dtype=like.dtype,
@@ -223,27 +252,31 @@ def avatar_forward(params: AvatarParams, buffers: AvatarBuffers,
                    cfg: AvatarConfig, template: DeviceTemplate,
                    cache: CanonicalCache, *, global_orient=None,
                    body_pose=None, betas=None, transl=None, smpl_scale=None,
-                   dataset_idx: int = 0, ext_tfs=None,
+                   dataset_idx=0, ext_tfs=None, opt_geo: bool = True,
+                   opt_app: bool = True, eval_mode: bool = False,
                    gs_attrs: dict | None = None,
                    active_sh_degree: int = 0) -> dict:
     """Single-frame forward; explicit SMPL args override the learned
-    per-frame parameters of frame `dataset_idx`."""
+    per-frame parameters of frame `dataset_idx` (an int or a 0-d
+    tensor). Outside eval_mode it adds the laplacian anchors
+    xyz_anchor_canon."""
     if gs_attrs is None:
-        gs_attrs = get_gs_attrs(params, buffers, cfg)
+        gs_attrs = get_gs_attrs(params, buffers, cfg, opt_geo=opt_geo,
+                                opt_app=opt_app)
     xyz_canon = gs_attrs["xyz_canon"]
     n = xyz_canon.shape[0]
     rotmat_canon, rotq_canon = _canon_rotations(gs_attrs, cfg, n, xyz_canon)
 
     if global_orient is None:
-        global_orient = rotation_6d_to_axis_angle(
-            params.global_orient[dataset_idx].reshape(1, 6)).reshape(3)
+        global_orient = rotation_6d_to_axis_angle(_frame_row(
+            params.global_orient, dataset_idx).reshape(1, 6)).reshape(3)
     if body_pose is None:
-        body_pose = rotation_6d_to_axis_angle(
-            params.body_pose[dataset_idx].reshape(-1, 6)).reshape(-1)
+        body_pose = rotation_6d_to_axis_angle(_frame_row(
+            params.body_pose, dataset_idx).reshape(-1, 6)).reshape(-1)
     if betas is None:
         betas = params.betas
     if transl is None:
-        transl = params.transl[dataset_idx]
+        transl = _frame_row(params.transl, dataset_idx)
 
     smpl_out = smpl_forward(template, betas.reshape(1, -1),
                             body_pose.reshape(1, -1),
@@ -270,12 +303,23 @@ def avatar_forward(params: AvatarParams, buffers: AvatarBuffers,
         scales = escale * scales
         rotq_def = quaternion_multiply(matrix_to_quaternion(erot)[None],
                                        rotq_def)
-    return {
-        "xyz": xyz_def, "xyz_canon": xyz_canon, "scales": scales,
+    out = {
+        "xyz": xyz_def, "xyz_canon": xyz_canon,
+        "xyz_offsets": gs_attrs["xyz_offsets"], "scales": scales,
+        "scales_canon": gs_attrs["scales"],
+        "scales_aux": gs_attrs["scales_aux"],
         "rotq": rotq_def, "rotq_canon": rotq_canon,
+        "rotmat_canon": rotmat_canon,
         "shs": gs_attrs["shs"], "opacity": gs_attrs["opacity"],
         "active_sh_degree": active_sh_degree, "alive": buffers.alive,
     }
+    if not eval_mode:
+        # laplacian anchors: gaussians pushed along the canonical vertex
+        # normals by half their mean (posed) scale
+        mean_scales = scales.mean(dim=-1, keepdim=True)
+        out["xyz_anchor_canon"] = (xyz_canon + mean_scales
+                                   * buffers.anchor_normals / 2.0)
+    return out
 
 
 def avatar_forward_chunk(params: AvatarParams, buffers: AvatarBuffers,
@@ -321,3 +365,86 @@ def avatar_forward_chunk(params: AvatarParams, buffers: AvatarBuffers,
         "active_sh_degree": active_sh_degree,
         "alive": buffers.alive,
     }
+
+
+def initial_attr_targets(cfg: AvatarConfig, tpl: BodyTemplate,
+                         cache: CanonicalCache, device="cpu") -> dict:
+    """Regression targets of the decoder pre-fit: scale = longest
+    incident edge * init_scale_multiplier, dc colour 0.5, rotation
+    aligning +z to the canonical normal, opacity init_opacity."""
+    c = cfg.capacity
+    n = tpl.num_verts
+    canon = cache.canonical_verts.detach().cpu().numpy()
+    edges = tpl.edges
+    el = np.linalg.norm(canon[edges[:, 0]] - canon[edges[:, 1]], axis=1)
+    max_len = np.zeros(n, np.float32)
+    np.maximum.at(max_len, edges[:, 0], el)
+    np.maximum.at(max_len, edges[:, 1], el)
+    scales_t = np.zeros((c, 3), np.float32)
+    scales_t[:n] = (max_len * cfg.init_scale_multiplier)[:, None]
+    scales_t[:n, 2] *= cfg.thickness_factor
+    scales_t = np.maximum(scales_t, 1e-5)
+    scales_aux_t = np.log(np.expm1(np.maximum(scales_t, 1e-6)))
+
+    shs_t = np.zeros((c, 16, 3), np.float32)
+    shs_t[:n, 0, :] = 0.5
+
+    normals = vertex_normals(canon, tpl.faces)
+    z = np.zeros((n, 3), np.float32)
+    z[:, 2] = 1.0
+    rot = rotation_matrix_from_vectors(torch.as_tensor(z),
+                                       torch.as_tensor(normals))
+    rot6d_t = np.zeros((c, 6), np.float32)
+    rot6d_t[:n] = matrix_to_rotation_6d(rot).numpy()
+
+    opacity_t = np.zeros((c, 1), np.float32)
+    opacity_t[:n] = cfg.init_opacity
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return {
+        "xyz_offsets": torch.zeros((c, 3), device=device),
+        "scales": t(scales_t),
+        "scales_aux": t(scales_aux_t),
+        "rot6d_canon": t(rot6d_t),
+        "shs": t(shs_t),
+        "opacity": t(opacity_t),
+    }
+
+
+def fit_initial_attrs(params: AvatarParams, buffers: AvatarBuffers,
+                      cfg: AvatarConfig, targets: dict, *, steps: int = 500,
+                      lr: float = 1e-3):
+    """Pre-fit triplane and decoders to the geometric targets: `steps`
+    Adam(lr, eps 1e-15) steps on sum over targets of
+    mean(((pred - target) * alive)^2). Returns (params, (steps,) losses)."""
+    from ..train.optim import adam_directions, adam_init
+    from ..tree import tree_leaves, tree_map
+
+    fields = ("triplane", "geometry_dec", "appearance_dec")
+    trainable = {f: getattr(params, f) for f in fields}
+    state = adam_init(trainable)
+    alive = buffers.alive[:, None]
+    losses = []
+    for _ in range(steps):
+        tr = tree_map(lambda x: x.detach().requires_grad_(True), trainable)
+        out = get_gs_attrs(params._replace(**tr), buffers, cfg)
+        total = 0.0
+        for k, tgt in targets.items():
+            if out.get(k) is None:
+                continue
+            pred = out[k]
+            m = alive.reshape((-1,) + (1,) * (pred.ndim - 1))
+            total = total + torch.mean(((pred - tgt) * m) ** 2)
+        leaves = tree_leaves(tr)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        it = iter([torch.zeros_like(x) if g is None else g
+                   for x, g in zip(leaves, grads)])
+        grad_tree = tree_map(lambda _: next(it), tr)
+        direction, state = adam_directions(grad_tree, state)
+        trainable = tree_map(lambda p, d: (p + (-lr) * d).detach(),
+                             trainable, direction)
+        losses.append(total.detach())
+    losses = torch.stack(losses) if losses else buffers.alive.new_zeros(0)
+    return params._replace(**trainable), losses

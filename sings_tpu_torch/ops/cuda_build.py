@@ -2,8 +2,9 @@
 
 Each csrc/<name>.cu has a plain C interface. It is compiled with nvcc
 for sm_90a into build/lib<name>-<hash>.so at first use (the hash covers
-the source and the flags, so an edited source rebuilds) and loaded with
-ctypes. Nothing is compiled when a module is imported.
+the source, the shared csrc/*.cuh headers and the flags, so an edited
+source or header rebuilds) and loaded with ctypes. Nothing is compiled
+when a module is imported.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

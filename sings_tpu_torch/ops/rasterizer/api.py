@@ -1,10 +1,13 @@
-"""Rasterizer API, forward (port of sings_tpu/ops/rasterizer/api.py).
+"""Differentiable rasterizer API (port of sings_tpu/ops/rasterizer/api.py).
 
-rasterize() = preprocess -> bin_gaussians -> _gather_feats ->
+rasterize() = preprocess (autograd) -> bin_gaussians -> _gather_feats ->
 composite_fwd (CUDA kernel on the card, plain version on the CPU) ->
-tile-to-image relayout and crop -> background blend. The composite sits
-in an autograd.Function whose backward raises: its gradient is the
-backward kernel composite_bwd, which comes with the training slice.
+tile-to-image relayout and crop -> background blend. The composite is
+an autograd.Function whose backward is the kernel composite_bwd: the
+cotangents are re-tiled to (T, 8, npx), the kernel writes per-pair
+gradients into the aligned buffer, and the 9 used rows are un-sorted
+back to gaussians with the main_slot / tail_slot / tail_of_gauss
+gathers of bin_gaussians.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from ..graphics import Camera
 from .common import Gaussians2D, preprocess
-from .kernels import NFEAT, composite_fwd
+from .kernels import N_USED, NFEAT, composite_bwd, composite_fwd
 from .reference import composite_dense
 from .tiles import TileBinning, bin_gaussians
 
@@ -78,6 +81,38 @@ def tiles_to_image(out: torch.Tensor, cfg: RasterConfig):
     return color, t_final
 
 
+def image_to_tiles(g_color: torch.Tensor, g_t: torch.Tensor,
+                   cfg: RasterConfig) -> torch.Tensor:
+    """Inverse of tiles_to_image for cotangents: (3, H, W) and (H, W),
+    zero-padded to whole tiles -> (T, 8, npx), rows 4-7 zero."""
+    ntx, nty = _pad_tiles(cfg)
+    t = cfg.tile
+    hp, wp = nty * t, ntx * t
+    g = g_color.new_zeros((4, hp, wp))
+    g[:3, : cfg.height, : cfg.width] = g_color
+    g[3, : cfg.height, : cfg.width] = g_t
+    tiles = g.reshape(4, nty, t, ntx, t).permute(1, 3, 0, 2, 4).reshape(
+        nty * ntx, 4, t * t)
+    return torch.cat([tiles, tiles.new_zeros((nty * ntx, 4, t * t))], dim=1)
+
+
+def unsort_pair_grads(pair_grads: torch.Tensor, binning: TileBinning,
+                      n: int) -> torch.Tensor:
+    """(9, grad_cap) per-slot gradients -> (n, 9) per gaussian: the sum
+    over each gaussian's main_slot row plus its tail-table row (row TC
+    of the tail sums is the zero row of gaussians without a tail)."""
+    mw = binning.main_slot.shape[1]
+    pg = pair_grads[:, binning.main_slot.reshape(-1).long()]
+    pg = pg.reshape(N_USED, n, mw).sum(dim=2).T
+    tc, tw = binning.tail_slot.shape
+    if tw > 0:
+        pgt = pair_grads[:, binning.tail_slot.reshape(-1).long()]
+        tail_sums = torch.cat([pgt.reshape(N_USED, tc, tw).sum(dim=2).T,
+                               pg.new_zeros((1, N_USED))])
+        pg = pg + tail_sums[binning.tail_of_gauss.long()]
+    return pg
+
+
 class _CompositeTiled(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, means2d, conics, colors, opacities, depths,
@@ -92,35 +127,56 @@ class _CompositeTiled(torch.autograd.Function):
         ntx, nty = _pad_tiles(cfg)
         out = composite_fwd(feats, binning.tile_offsets, tile=cfg.tile,
                             chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty)
+        ctx.cfg = cfg
+        ctx.binning = binning
+        ctx.save_for_backward(feats, out)
         return tiles_to_image(out, cfg)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "rasterize is forward-only: the composite backward "
-            "(composite_bwd kernel) arrives with the training slice")
+    def backward(ctx, g_color, g_t):
+        cfg, binning = ctx.cfg, ctx.binning
+        feats, out = ctx.saved_tensors
+        ntx, nty = _pad_tiles(cfg)
+        gout = image_to_tiles(g_color, g_t, cfg)
+        pair_grads = composite_bwd(
+            feats, binning.tile_offsets, binning.grad_offsets, out, gout,
+            tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty,
+            grad_cap=binning.pair_slot_capacity)
+        pg = unsort_pair_grads(pair_grads, binning,
+                               binning.tail_of_gauss.shape[0])
+        return (None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8], pg[:, 8], None,
+                None, None)
 
 
 def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
               *, sh_degree: int = 0, bg: torch.Tensor | None = None,
               scale_modifier: float = 1.0, alive=None,
+              screen_probe: torch.Tensor | None = None,
               backend: str = "pallas", tile: int = 16, chunk: int = 128,
               max_span: int = 5, max_pairs: int | None = None,
               main_width: int = 6, tail_capacity: int | None = None,
               cull: bool = True, pair_cap: int | None = None,
               scan_roll: bool = False, layout: str = "tiled") -> dict:
-    """Gaussian splatting to an image, forward only.
+    """Differentiable gaussian splatting to an image.
 
     backend "pallas" (the JAX package's name, kept so callers pass the
-    same keywords): the tiled composite, the CUDA kernel for CUDA
+    same keywords): the tiled composite, the CUDA kernels for CUDA
     tensors. "reference": the dense oracle. Returns {'render' (3, H, W)
     unclamped, 'radii', 'visibility_filter', 'transmittance', 'means2d'}.
+
+    screen_probe: optional (N, 2) zeros added to the screen means as
+    probe * (W/2, H/2); its gradient is the NDC-convention screen
+    gradient that density control accumulates.
     """
     if bg is None:
         bg = means3d.new_zeros(3)
     g2d = preprocess(means3d, scales, quats, opacities, features, camera,
                      sh_degree=sh_degree, scale_modifier=scale_modifier,
                      alive=alive, tile=tile)
+    if screen_probe is not None:
+        probe = torch.stack([screen_probe[:, 0] * (0.5 * camera.width),
+                             screen_probe[:, 1] * (0.5 * camera.height)], -1)
+        g2d = g2d._replace(means2d=g2d.means2d + probe)
     if backend == "pallas":
         cfg = RasterConfig(
             height=camera.height, width=camera.width, tile=tile,

@@ -1,22 +1,34 @@
-"""Tile compositing forward: the CUDA kernel and its plain version.
+"""Tile compositing, forward and backward: the CUDA kernels and their
+plain versions.
 
-Counterpart of composite_fwd in sings_tpu/ops/rasterizer/pallas_kernels.py
-(:873, body _fwd_kernel :133). The kernel is csrc/composite_fwd.cu, built
-with nvcc for sm_90a and called through ctypes; composite_fwd_plain is
-the same function in PyTorch, chunk by chunk over all tiles at once.
+Counterparts of composite_fwd and composite_bwd in
+sings_tpu/ops/rasterizer/pallas_kernels.py (:873, body _fwd_kernel :133;
+:912, body _bwd_kernel :218). The kernels are csrc/composite_fwd.cu and
+csrc/composite_bwd.cu, built with nvcc for sm_90a and called through
+ctypes; composite_{fwd,bwd}_plain are the same functions in PyTorch,
+chunk by chunk over all tiles at once.
 
-composite_fwd dispatches on the tensors' device: CUDA tensors launch
-the kernel (or raise), CPU tensors run the plain version. Nothing else.
+composite_fwd / composite_bwd dispatch on the tensors' device: CUDA
+tensors launch the kernel (or raise), CPU tensors run the plain
+version. Nothing else.
 
 Pair features: (NFEAT=16, PK + chunk) float32, pair-minor rows
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c |
   5 r | 6 g | 7 b | 8 opacity | 9..15 zero
-Output: (T, 8, tile*tile): rows 0-2 colour (no background), row 3 final
-transmittance, rows 4-7 zero.
+Forward output: (T, 8, tile*tile): rows 0-2 colour (no background), row
+3 final transmittance, rows 4-7 zero.
+Backward output: (9, grad_cap) per-pair gradients in JAX's row order
+(d mean_x, d mean_y, d conic a, b, c, d r, g, b, d opacity), the first 9
+of JAX's 16 rows, at grad_offsets[t] + (i - base_t) for sorted pair i of
+tile t. The buffer starts zeroed: every slot the kernel does not write
+(pairs outside a segment, windows after a tile's exit, the spare window
+[grad_cap - chunk, grad_cap)) reads zero, as the TPU kernel's explicit
+zero stores make it there.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +40,7 @@ NFEAT = 16
 N_USED = 9
 
 # launches of each kernel through its wrapper (never the plain version)
-LAUNCHES = {"composite_fwd": 0}
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -36,27 +48,45 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _pixel_coords_local(tile: int, device):
-    p = torch.arange(tile * tile, device=device)
-    return ((p % tile).to(torch.float32)[None, None, :],
-            (p // tile).to(torch.float32)[None, None, :])
+def _tri(chunk: int, device, strict: bool) -> torch.Tensor:
+    """(chunk, chunk) lower-triangular ones, strict or inclusive: the
+    TPU kernels' _tri_strict / _tri_incl cumsum matrices."""
+    return torch.tril(torch.ones((chunk, chunk), device=device),
+                      diagonal=-1 if strict else 0)
 
 
-def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
-                        tile: int, chunk: int, n_tiles_x: int,
-                        n_tiles_y: int, return_walked: bool = False):
-    """Plain PyTorch composite, vectorised over tiles.
+class _Window(NamedTuple):
+    """One chunk-aligned window of every tile, as _walk_windows yields it.
 
-    Step c handles every tile's c-th chunk-aligned window as one
-    (T, chunk, npx) block, with the TPU kernel's arithmetic: alpha from
-    tile-local coordinates, the exclusive cumsum of log1p(-alpha) as a
+    f: (9, T, chunk, 1) used feature rows; dx, dy, gv, alpha, t_bef,
+    flag: (T, chunk, npx); walking: (T,) tiles still walking; n_walked:
+    (T,) pairs of the tile's segment in this window (0 once it stopped);
+    t_after: (T, 1, npx) transmittance after the window.
+    """
+    c: int
+    f: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    gv: torch.Tensor
+    alpha: torch.Tensor
+    t_bef: torch.Tensor
+    flag: torch.Tensor
+    walking: torch.Tensor
+    n_walked: torch.Tensor
+    t_after: torch.Tensor
+
+
+def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
+                  chunk: int, n_tiles_x: int, n_tiles_y: int):
+    """The front-to-back walk that both plain versions share, as
+    csrc/composite_common.cuh is shared by both kernels.
+
+    Window c of every tile at once, with the TPU kernels' arithmetic:
+    alpha from tile-local coordinates (zero where the pair is skipped or
+    outside the segment), the exclusive cumsum of log1p(-alpha) as a
     strictly-lower-triangular matmul, the T * (1 - alpha) >= 1e-4 flag
-    and the carried transmittance. Tiles whose every pixel has
-    T < 1e-4 stop there, as the kernel's per-tile exit does; later
-    windows could change nothing for them anyway.
-
-    return_walked: also return the number of pairs walked before each
-    tile's exit, summed (the data-dependent work of this input).
+    and the carried transmittance. Tiles whose every pixel has T < 1e-4
+    stop there, as the kernels' per-tile exit does.
     """
     dev = feats.device
     n_tiles = n_tiles_x * n_tiles_y
@@ -66,54 +96,77 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
     start, end = offs[:-1], offs[1:]
     base = torch.div(start, chunk, rounding_mode="floor") * chunk
     nchunks = torch.div(end - base + chunk - 1, chunk, rounding_mode="floor")
-    px_x, px_y = _pixel_coords_local(tile, dev)
+    p = torch.arange(npx, device=dev)
+    px_x = (p % tile).to(torch.float32)[None, None, :]
+    px_y = (p // tile).to(torch.float32)[None, None, :]
     tid = torch.arange(n_tiles, device=dev)
     ox = ((tid % n_tiles_x).to(torch.float32) * tile)[:, None, None]
     oy = ((tid // n_tiles_x).to(torch.float32) * tile)[:, None, None]
-    ltri = torch.tril(torch.ones((chunk, chunk), device=dev), diagonal=-1)
+    ltri = _tri(chunk, dev, strict=True)
     sub = torch.arange(chunk, device=dev)
 
     t_carry = torch.ones((n_tiles, 1, npx), device=dev)
-    acc = torch.zeros((n_tiles, 3, npx), device=dev)
     walking = torch.ones(n_tiles, dtype=torch.bool, device=dev)
-    walked = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     max_chunks = int(nchunks.max()) if n_tiles else 0
     for c in range(max_chunks):
         walking = walking & (c < nchunks) & (
             t_carry.amax(dim=(1, 2)) >= T_EPS)
         if not bool(walking.any()):
-            break
+            return
         gidx = base[:, None] + c * chunk + sub[None, :]        # (T, chunk)
-        f = feats[:N_USED, gidx.clamp(max=width - 1)]          # (9, T, chunk)
-        f = f[..., None]                                       # (9,T,chunk,1)
+        f = feats[:N_USED, gidx.clamp(max=width - 1)][..., None]
         pair_ok = ((gidx >= start[:, None]) & (gidx < end[:, None])
                    & walking[:, None])[..., None]
-        walked += ((torch.minimum(end, base + (c + 1) * chunk)
-                    - torch.maximum(start, base + c * chunk)).clamp_min(0)
-                   * walking)
-        mx = f[0] - ox
-        my = f[1] - oy
+        n_walked = ((torch.minimum(end, base + (c + 1) * chunk)
+                     - torch.maximum(start, base + c * chunk)).clamp_min(0)
+                    * walking)
         ca, cb, cc, op = f[2], f[3], f[4], f[8]
-        dx = mx - px_x
-        dy = my - px_y
+        dx = (f[0] - ox) - px_x
+        dy = (f[1] - oy) - px_y
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp_max(op * torch.exp(power), 0.99)
+        gv = torch.exp(power)
+        alpha = torch.clamp_max(op * gv, 0.99)
         alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN) | ~pair_ok,
                             torch.zeros_like(alpha), alpha)
         la = torch.log1p(-alpha)
-        excl = torch.matmul(ltri, la)
-        t_bef = t_carry * torch.exp(excl)
+        t_bef = t_carry * torch.exp(torch.matmul(ltri, la))
         flag = (t_bef * (1.0 - alpha)) >= T_EPS
-        w = torch.where(flag, alpha, torch.zeros_like(alpha)) * t_bef
+        la_eff = torch.where(flag, la, torch.zeros_like(la))
+        t_after = t_carry * torch.exp(torch.sum(la_eff, dim=1, keepdim=True))
+        yield _Window(c, f, dx, dy, gv, alpha, t_bef, flag, walking,
+                      n_walked, t_after)
+        t_carry = t_after
+
+
+def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
+                        tile: int, chunk: int, n_tiles_x: int,
+                        n_tiles_y: int, return_walked: bool = False):
+    """Plain PyTorch composite, vectorised over tiles: the colour sums
+    of _walk_windows' compositing pairs and the last transmittance.
+
+    return_walked: also return the number of pairs walked before each
+    tile's exit, summed (the data-dependent work of this input).
+    """
+    n_tiles = n_tiles_x * n_tiles_y
+    npx = tile * tile
+    dev = feats.device
+    t_final = torch.ones((n_tiles, 1, npx), device=dev)
+    acc = torch.zeros((n_tiles, 3, npx), device=dev)
+    walked = 0
+    for win in _walk_windows(feats, offsets, tile=tile, chunk=chunk,
+                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y):
+        f = win.f
+        w = torch.where(win.flag, win.alpha,
+                        torch.zeros_like(win.alpha)) * win.t_bef
         acc[:, 0:1] += torch.sum(w * f[5], dim=1, keepdim=True)
         acc[:, 1:2] += torch.sum(w * f[6], dim=1, keepdim=True)
         acc[:, 2:3] += torch.sum(w * f[7], dim=1, keepdim=True)
-        la_eff = torch.where(flag, la, torch.zeros_like(la))
-        t_carry = t_carry * torch.exp(torch.sum(la_eff, dim=1, keepdim=True))
-    out = torch.cat([acc, t_carry,
+        walked += int(win.n_walked.sum())
+        t_final = win.t_after
+    out = torch.cat([acc, t_final,
                      torch.zeros((n_tiles, 4, npx), device=dev)], dim=1)
     if return_walked:
-        return out, int(walked.sum())
+        return out, walked
     return out
 
 
@@ -122,11 +175,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
 
 
-def _lib():
-    lib = cuda_build.load("composite_fwd")
-    fn = lib.composite_fwd_launch
+def _lib(name: str = "composite_fwd", argtypes=_ARGTYPES):
+    fn = getattr(cuda_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -143,8 +195,9 @@ def _check(feats, offsets, tile, chunk, n_tiles):
                          f"{tuple(offsets.shape)}")
     if feats.stride(1) != 1 or not offsets.is_contiguous():
         raise ValueError("feats rows and offsets must be contiguous")
-    if not 1 <= tile * tile <= 1024:
-        raise ValueError(f"tile {tile}: tile*tile threads must be <= 1024")
+    if not 1 <= tile * tile <= 1024 or (tile * tile) % 32:
+        raise ValueError(f"tile {tile}: tile*tile threads must be a "
+                         "multiple of 32 and <= 1024")
     if chunk <= 0:
         raise ValueError(f"chunk {chunk} must be positive")
 
@@ -181,3 +234,127 @@ def composite_fwd(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
     if feats.device.type == "cpu":
         return composite_fwd_plain(feats, offsets, **kw)
     raise ValueError(f"composite_fwd: unsupported device {feats.device}")
+
+
+def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
+                        grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
+                        gout: torch.Tensor, *, tile: int, chunk: int,
+                        n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                        return_counts: bool = False):
+    """Plain PyTorch backward, vectorised over tiles.
+
+    The TPU kernel's arithmetic on _walk_windows' windows: the inclusive
+    cumsum of w * gc as a triangular matmul, the closed form dC/dalpha
+    and the pixel reductions. Writes each walking tile's window into a
+    zeroed (9, grad_cap) buffer at grad_offsets[t] + c * chunk.
+
+    return_counts: also return the pairs walked before each tile's exit
+    and the pair-pixels that composite, each summed (the data-dependent
+    work of this input).
+    """
+    dev = feats.device
+    n_tiles = n_tiles_x * n_tiles_y
+    npx = tile * tile
+    goffs = grad_offsets.to(torch.int64)
+    linc = _tri(chunk, dev, strict=False)
+    sub = torch.arange(chunk, device=dev)
+
+    g_rgb = gout[:, 0:3]                                    # (T, 3, npx)
+    cfg = torch.sum(g_rgb * fwd_out[:, 0:3], dim=1, keepdim=True)
+    gtf = gout[:, 3:4] * fwd_out[:, 3:4]                    # (T, 1, npx)
+    grads = feats.new_zeros((N_USED, grad_cap))
+    cpg = torch.zeros((n_tiles, 1, npx), device=dev)
+    walked = composited = 0
+    for win in _walk_windows(feats, offsets, tile=tile, chunk=chunk,
+                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y):
+        f, dx, dy, gv, t_bef = win.f, win.dx, win.dy, win.gv, win.t_bef
+        aeff = torch.where(win.flag, win.alpha, torch.zeros_like(win.alpha))
+        w = aeff * t_bef
+        gc = f[5] * g_rgb[:, 0:1] + f[6] * g_rgb[:, 1:2] + f[7] * g_rgb[:, 2:3]
+        upg = cpg + torch.matmul(linc, w * gc)
+        dl_da = t_bef * gc - ((cfg - upg) + gtf) / (1.0 - aeff)
+        dl_da = torch.where(aeff > 0.0, dl_da, torch.zeros_like(dl_da))
+        # the derivative as if alpha = op * G, clamp or not (TPU quirk)
+        dl_dpow = f[8] * dl_da * gv
+        u = dl_dpow * dx
+        v = dl_dpow * dy
+        su = u.sum(dim=2)
+        sv = v.sum(dim=2)
+        ca, cb, cc = f[2, ..., 0], f[3, ..., 0], f[4, ..., 0]
+        block = torch.stack([
+            -(ca * su + cb * sv), -(cc * sv + cb * su),
+            -0.5 * (u * dx).sum(dim=2), -(u * dy).sum(dim=2),
+            -0.5 * (v * dy).sum(dim=2),
+            (g_rgb[:, 0:1] * w).sum(dim=2), (g_rgb[:, 1:2] * w).sum(dim=2),
+            (g_rgb[:, 2:3] * w).sum(dim=2), (gv * dl_da).sum(dim=2)])
+        slots = goffs[:-1, None] + win.c * chunk + sub[None, :]  # (T, chunk)
+        grads[:, slots[win.walking]] = block[:, win.walking]
+        cpg = upg[:, chunk - 1:chunk]
+        if return_counts:
+            walked += int(win.n_walked.sum())
+            composited += int((aeff > 0.0).sum())
+    if return_counts:
+        return grads, walked, composited
+    return grads
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
+                       grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
+                       gout: torch.Tensor, *, tile: int, chunk: int,
+                       n_tiles_x: int, n_tiles_y: int,
+                       grad_cap: int) -> torch.Tensor:
+    """Launch csrc/composite_bwd.cu on the current stream into a zeroed
+    (9, grad_cap) buffer."""
+    n_tiles = n_tiles_x * n_tiles_y
+    npx = tile * tile
+    tensors = (feats, offsets, grad_offsets, fwd_out, gout)
+    if not all(x.is_cuda and x.device == feats.device for x in tensors):
+        raise ValueError("composite_bwd_cuda needs every tensor on one "
+                         "CUDA device")
+    _check(feats, offsets, tile, chunk, n_tiles)
+    if grad_offsets.dtype != torch.int32 or grad_offsets.shape != (
+            n_tiles + 1,) or not grad_offsets.is_contiguous():
+        raise ValueError("grad_offsets must be contiguous int32 "
+                         f"({n_tiles + 1},)")
+    for name, x in (("fwd_out", fwd_out), ("gout", gout)):
+        if (x.dtype != torch.float32 or x.shape != (n_tiles, 8, npx)
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 "
+                             f"({n_tiles}, 8, {npx}), got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if grad_cap < chunk:
+        raise ValueError(f"grad_cap {grad_cap} < chunk {chunk}")
+    fn = _lib("composite_bwd", _BWD_ARGTYPES)
+    grads = torch.zeros((N_USED, grad_cap), dtype=torch.float32,
+                        device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
+             grad_offsets.data_ptr(), fwd_out.data_ptr(), gout.data_ptr(),
+             grads.data_ptr(), grad_cap, n_tiles, tile, chunk, n_tiles_x,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
+    LAUNCHES["composite_bwd"] += 1
+    return grads
+
+
+def composite_bwd(feats: torch.Tensor, offsets: torch.Tensor,
+                  grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
+                  gout: torch.Tensor, *, tile: int, chunk: int,
+                  n_tiles_x: int, n_tiles_y: int,
+                  grad_cap: int) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
+              n_tiles_y=n_tiles_y, grad_cap=grad_cap)
+    args = (feats, offsets, grad_offsets, fwd_out, gout)
+    if feats.is_cuda:
+        return composite_bwd_cuda(*args, **kw)
+    if feats.device.type == "cpu":
+        return composite_bwd_plain(*args, **kw)
+    raise ValueError(f"composite_bwd: unsupported device {feats.device}")

@@ -10,13 +10,16 @@ sings_tpu/ops/rasterizer/tiles.py, forward fields).
   3. one sort over key = tile * N + rank groups pairs by tile in depth
      order; invalid keys sort last; the prefix is cut to the capacity
      PK (rounded up to `align`, padded with invalid keys);
-  4. per-tile offsets come from one searchsorted(side="left").
+  4. per-tile offsets come from one searchsorted(side="left");
+  5. the backward-glue tables map each original (gaussian, j) pair to
+     its slot in the gradient buffer that composite_bwd writes: tile t's
+     window c lands at grad_offsets[t] + c * align, so sorted pair i of
+     tile t sits at i + grad_offsets[t] - base_t. main_slot holds the
+     first main_width pairs of every gaussian, tail_slot the rest of
+     the gaussians that span more, compacted to tail_capacity rows;
+     invalid pairs point at the spare slot grad_capacity - 1.
 
-The fields the forward composite reads (sorted_gauss, tile_offsets,
-num_pairs, overflow) equal JAX's integer for integer. The backward-glue
-tables (grad_offsets, main_slot, tail_slot, tail_of_gauss) belong to
-the training slice; `overflow` already counts the tail-table overflow
-they would add, so it matches JAX's count.
+Every field equals JAX's integer for integer, tail overflow included.
 """
 from __future__ import annotations
 
@@ -32,8 +35,21 @@ INVALID = 2**31 - 1
 class TileBinning(NamedTuple):
     sorted_gauss: torch.Tensor  # (PK,) int32 gaussian per sorted pair, -1
     tile_offsets: torch.Tensor  # (T + 1,) int32 unaligned segment offsets
+    grad_offsets: torch.Tensor  # (T + 1,) int32 aligned grad-buffer offsets
+    main_slot: torch.Tensor     # (N, main_width) int32 grad-buffer slots
+    tail_slot: torch.Tensor     # (TC, cap - main_width) int32, (0, 0) if none
+    tail_of_gauss: torch.Tensor  # (N,) int32 tail row, TC = no tail
     num_pairs: torch.Tensor     # () int32 valid pairs before truncation
     overflow: torch.Tensor      # () int32 dropped pairs
+    pair_slot_capacity: int = 0  # grad-buffer slots (grad_capacity)
+
+
+def grad_capacity(max_pairs: int, n_tiles: int, align: int) -> int:
+    """Gradient-buffer slots: every tile's region rounded out to whole
+    align-wide windows, plus a spare window [pg - align, pg) whose last
+    slot is the one invalid pairs gather from."""
+    used = -(-max_pairs // align) * align + 2 * align * n_tiles
+    return used + align
 
 
 def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
@@ -164,22 +180,71 @@ def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
         sorted_tile, torch.arange(n_tiles + 1, dtype=i64, device=dev),
         side="left")
 
-    # overflow of the backward-glue tail table (gaussians spanning more
-    # than main_width tiles beyond tail_capacity rows), counted as JAX does
+    # grad regions: each tile's [aligned floor, end) rounded up to align
+    counts = offsets[1:] - offsets[:-1]
+    seg_base = torch.div(offsets[:-1], align, rounding_mode="floor") * align
+    head = offsets[:-1] - seg_base
+    padded = torch.div(head + counts + align - 1, align,
+                       rounding_mode="floor") * align
+    grad_offsets = torch.cat([offsets.new_zeros(1), torch.cumsum(padded, 0)])
+    pg = grad_capacity(pk, n_tiles, align)
+    spare = pg - 1
+
+    # slot of sorted pair i: i + shift[tile_i], shift[t] = grad_offsets[t]
+    # - base_t, piecewise constant over the tile-grouped order: deltas at
+    # segment starts (starts == pk, of truncated tiles, dropped), cumsum
+    shift = grad_offsets[:-1] - seg_base
+    deltas = torch.diff(shift, prepend=shift.new_zeros(1))
+    starts = offsets[:-1]
+    keep = starts < pk
+    seg_delta = torch.zeros(pk, dtype=i64, device=dev).index_add_(
+        0, starts[keep], deltas[keep])
+    slot = torch.arange(pk, dtype=i64, device=dev) + torch.cumsum(seg_delta, 0)
+    slot = torch.where(is_valid & (slot < pg - 1), slot,
+                       torch.full_like(slot, spare))
+
+    # invert to original (gaussian, j) order; fake alignment ids >= p and
+    # pairs cut by the capacity keep the spare slot
+    pair_slot = torch.full((p,), spare, dtype=i64, device=dev)
+    real = sf < p
+    pair_slot[sf[real]] = slot[real]
+    ps = pair_slot.reshape(n, cap)
+
     mw = min(main_width, cap)
-    if cap - mw > 0:
+    main_slot = ps[:, :mw]
+    tw = cap - mw
+    if tw > 0:
+        # tail table over gaussians spanning more than main_width pairs;
+        # its overflow is counted
         tc = tail_capacity
         if tc is None:
             tc = max(align, -(-n // 16 // align) * align)
         tc = min(tc, n)
         big = span > mw
+        nbig = big.sum()
+        border = torch.argsort((~big).to(torch.int32), stable=True)
+        tail_rows = border[:tc]
+        row_ok = torch.arange(tc, device=dev) < nbig
+        tail_slot = torch.where(row_ok[:, None], ps[tail_rows, mw:],
+                                torch.full_like(ps[tail_rows, mw:], spare))
         brank = torch.cumsum(big.to(i64), 0) - 1
+        tail_of_gauss = torch.where(big & (brank < tc), brank,
+                                    torch.full_like(brank, tc))
         overflow = overflow + torch.where(big & (brank >= tc), span - mw,
                                           torch.zeros_like(span)).sum()
+    else:
+        tail_of_gauss = torch.zeros(n, dtype=i64, device=dev)
+        tail_slot = torch.zeros((0, 0), dtype=i64, device=dev)
 
+    i32 = torch.int32
     return TileBinning(
-        sorted_gauss=sorted_gauss.to(torch.int32),
-        tile_offsets=offsets.to(torch.int32),
-        num_pairs=num_pairs.to(torch.int32),
-        overflow=overflow.to(torch.int32),
+        sorted_gauss=sorted_gauss.to(i32),
+        tile_offsets=offsets.to(i32),
+        grad_offsets=grad_offsets.to(i32),
+        main_slot=main_slot.to(i32),
+        tail_slot=tail_slot.to(i32),
+        tail_of_gauss=tail_of_gauss.to(i32),
+        num_pairs=num_pairs.to(i32),
+        overflow=overflow.to(i32),
+        pair_slot_capacity=pg,
     )

@@ -169,3 +169,27 @@ def standardize_quaternion(quat: torch.Tensor) -> torch.Tensor:
 def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Composition of rotations, standardized (pytorch3d convention)."""
     return standardize_quaternion(quaternion_raw_multiply(a, b))
+
+
+def rotation_matrix_from_vectors(a: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Per-row rotation aligning vectors a -> b, (N, 3), (N, 3) ->
+    (N, 3, 3); identity when parallel, a reflection-based flip when
+    antiparallel (the JAX package's guarded construction)."""
+    a = a / torch.linalg.norm(a, dim=-1, keepdim=True).clamp_min(1e-12)
+    b = b / torch.linalg.norm(b, dim=-1, keepdim=True).clamp_min(1e-12)
+    v = torch.cross(a, b, dim=-1)
+    c = torch.sum(a * b, dim=-1)
+    s2 = torch.sum(v * v, dim=-1)
+    zeros = torch.zeros_like(v[..., 0])
+    K = torch.stack([zeros, -v[..., 2], v[..., 1],
+                     v[..., 2], zeros, -v[..., 0],
+                     -v[..., 1], v[..., 0], zeros],
+                    dim=-1).reshape(v.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand(K.shape)
+    factor = ((1 - c) / torch.clamp_min(s2, 1e-12))[..., None, None]
+    R = eye + K + (K @ K) * factor
+    parallel = (s2 < 1e-12)[..., None, None]
+    flip = -eye + 2.0 * a[..., :, None] * a[..., None, :]
+    fallback = torch.where((c > 0)[..., None, None], eye, flip)
+    return torch.where(parallel, fallback, R)

@@ -1,10 +1,13 @@
-"""Bilinear grid sampling, forward only (port of sings_tpu/ops/sampling.py).
+"""Bilinear grid sampling (port of sings_tpu/ops/sampling.py).
 
 Equivalent to grid_sample(mode='bilinear', padding_mode='border',
 align_corners=True) on 2D grids, written out rather than calling
 torch.nn.functional.grid_sample: the JAX package's clamped base corner
 (x0 in [0, W-2]) and its corner-stacked gather table define the exact
-arithmetic, and the triplane's nested path reuses both.
+arithmetic, and the triplane's nested path reuses both. The gradient is
+autograd of this forward: the weight path for the coordinates (as in
+JAX), a scatter-add for the grid (JAX sums the same terms in a sorted
+segment reduction).
 """
 from __future__ import annotations
 

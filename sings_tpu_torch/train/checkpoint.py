@@ -6,8 +6,10 @@ jax.tree_util flatten order: NamedTuple fields in declaration order,
 dict keys sorted, lists by index, None contributing no leaf. The port's
 AvatarParams / AvatarBuffers mirror those trees, so a JAX checkpoint
 loads leaf for leaf; every shape is checked against the AvatarConfig.
-The optimizer section (opt__*) is ignored: the animation path has no
-optimizer.
+The optimizer section (opt__*) is not read back: resuming a training
+run is a later slice. params/buffers/adam_state/region_laplacian
+_from_numpy turn the JAX package's in-memory state into the port's, so
+tests can start both packages from one state.
 """
 from __future__ import annotations
 
@@ -197,4 +199,28 @@ def params_from_numpy(tree, device="cpu") -> AvatarParams:
 
 
 def buffers_from_numpy(tree, device="cpu") -> AvatarBuffers:
+    """A JAX AvatarBuffers (max_radii2d, xyz_grad_accum and grad_denom
+    included) -> the port's."""
     return _tree_from_numpy(tree, AvatarBuffers, device)
+
+
+def adam_state_from_numpy(opt_state, device="cpu"):
+    """The optax state of sings_tpu's make_optimizer (a tuple holding a
+    ScaleByAdamState(count, mu, nu); leaves numpy or JAX arrays) -> the
+    port's AdamState, so both packages can start from one state."""
+    from .optim import AdamState
+
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    return AdamState(
+        count=torch.as_tensor(np.array(adam.count), dtype=torch.int32,
+                              device=device),
+        mu=params_from_numpy(adam.mu, device),
+        nu=params_from_numpy(adam.nu, device))
+
+
+def region_laplacian_from_numpy(rl, device="cpu"):
+    """A JAX RegionLaplacian (the gather tables) -> the port's."""
+    from ..losses.regularizers import RegionLaplacian
+
+    return RegionLaplacian(*[torch.as_tensor(np.array(x), device=device)
+                             for x in rl])

@@ -1,4 +1,5 @@
-"""Trainer, animation mode (port of sings_tpu/train/trainer.py, anim branch).
+"""Trainer (port of sings_tpu/train/trainer.py): animation mode and the
+train-mode constructor.
 
 Trainer(cfg, mode="anim") builds what the JAX constructor builds for an
 animation run: the kit (or an in-memory one), the animation dataset,
@@ -7,13 +8,22 @@ config and state, and the latest checkpoint. animate_chunk renders the
 motion 16 frames at a time: decode once, pose a chunk with batched LBS,
 rasterize each frame, quantise to uint8 on the device.
 
-Two deviations from the JAX signatures:
+Trainer(cfg, mode="train") also builds the optimizer and its state, the
+loss weights and StepConfig from the YAML keys, the region laplacian,
+the decoder pre-fit (init_attrs) and self.train_step /
+self.train_scan, the step and K-step chunk that bench.py's recipe
+benchmark drives. Trainer.train() (the loop with logging, validation,
+checkpoints, SH annealing and density control) is a later slice and
+raises, as does resuming a training run from a checkpoint.
+
+Deviations from the JAX signatures:
   * Trainer(..., kit=TrainingKit) takes a kit held in memory, so a run
     needs no image files (and no image library) on disk;
   * animate_chunk(..., writer=callable) takes the frame sink; the
     default writes JPEGs with PIL, imported only then, which lets a
-    machine without PIL or cv2 render.
-Training (mode="train") is a later slice and raises.
+    machine without PIL or cv2 render;
+  * train_step / train_scan take a torch.Generator (self.step_generator)
+    where JAX takes PRNG keys, and optionally the draws themselves.
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ import time
 import numpy as np
 import torch
 
+from ..config.defaults import (
+    DEFAULT_COLOR_REGIONS_W, DEFAULT_POSITION_REGIONS_W, parse_region_weights,
+)
 from ..data.anim import load_anim_dataset
 from ..data.kit import TrainingKit, load_kit
 from ..device import resolve_device
@@ -33,12 +46,20 @@ from ..fields.decoders import DecoderConfig
 from ..fields.triplane import TriplaneConfig
 from ..kinematics.body_model import load_template
 from ..kinematics.template import DeviceTemplate, canonical_pose_cache
+from ..losses.photometric import PhotometricWeights
+from ..losses.regularizers import (
+    L2NormConfig, build_region_laplacian, edge_stat,
+)
 from ..model.avatar import (
-    AvatarConfig, avatar_forward_chunk, get_gs_attrs, init_avatar,
+    AvatarConfig, avatar_forward_chunk, fit_initial_attrs, get_canon_xyz,
+    get_gs_attrs, init_avatar, initial_attr_targets,
 )
 from ..ops.rasterizer.api import rasterize
 from .checkpoint import latest_checkpoint, load_checkpoint
-from .step import sh_degree_mask
+from .optim import LRConfig, TrainFlags, make_optimizer
+from .step import (
+    LossWeights, StepConfig, make_train_scan, make_train_step, sh_degree_mask,
+)
 
 
 def _round_up(x, m):
@@ -91,10 +112,9 @@ def _jpeg_writer(out_dir: str, pool: cf.ThreadPoolExecutor):
 class Trainer:
     def __init__(self, cfg, mode: str = "anim", device=None,
                  kit: TrainingKit | None = None):
-        if mode == "train":
+        if mode not in ("anim", "train"):
             raise NotImplementedError(
-                "training arrives with a later slice of the port; this "
-                "slice ports the animation render (mode='anim')")
+                f"mode={mode!r}: the port has 'anim' and 'train'")
         self.cfg = cfg
         self.device = resolve_device(device)
         random.seed(cfg.seed)
@@ -120,7 +140,7 @@ class Trainer:
                            downscale=int(cfg.dataset.get("downscale", 1) or 1),
                            max_frames=cfg.dataset.get("max_frames"))
         self.kit = kit
-        self.camera = kit.camera
+        self.camera = kit.camera.to(self.device)
 
         self.anim_dataset = None
         if cfg.anim_cfg_path and os.path.exists(cfg.anim_cfg_path):
@@ -212,9 +232,149 @@ class Trainer:
         self.step = 0
         self.raster_kw = default_raster_kw(cfg, self.device)
 
+        if mode == "train":
+            self._init_training(hcfg, capacity)
+
         ckpt = hcfg.ckpt or latest_checkpoint(self.logdir_ckpt)
         if ckpt and os.path.exists(str(ckpt)):
+            if mode == "train" and not cfg.eval:
+                raise NotImplementedError(
+                    f"found checkpoint {ckpt}: resuming a training run is "
+                    "a later slice of the port (ROADMAP queue A 2); use a "
+                    "fresh output_path")
             self.load_ckpt(str(ckpt))
+        elif mode == "train" and not cfg.eval:
+            self._init_attrs()
+
+    # ------------------------------------------------------------------
+    def _init_training(self, hcfg, capacity: int) -> None:
+        """What the JAX constructor builds for training: optimizer and
+        state, loss weights, StepConfig, the step and the K-step chunk,
+        the region laplacians."""
+        cfg = self.cfg
+        dev = self.device
+        self.images = torch.as_tensor(np.asarray(self.kit.images, np.float32),
+                                      device=dev)
+        self.masks = torch.as_tensor(np.asarray(self.kit.masks, np.float32),
+                                     device=dev)
+        self.step_generator = torch.Generator(device=dev).manual_seed(
+            int(cfg.seed))
+        lr = LRConfig(**{k: getattr(hcfg.lr, k) for k in LRConfig._fields})
+        flags = TrainFlags(optim_pose=hcfg.optim_pose,
+                           optim_betas=hcfg.optim_betas,
+                           optim_trans=hcfg.optim_trans)
+        self.tx = make_optimizer(
+            lr, flags,
+            grad_clip_norm=float(cfg.tpu.get("grad_clip_norm", 0.0) or 0.0))
+        self.opt_state = self.tx.init(self.params)
+
+        loss_cfg = hcfg.loss
+        # LPIPS: pretrained weights keep lpips_w, the random-feature
+        # fallback scales it by random_lpips_factor; either way a
+        # positive weight needs the LPIPS network, not ported yet
+        lpips_path = cfg.tpu.get("lpips_weights")
+        pretrained = bool(lpips_path) and os.path.exists(str(lpips_path))
+        lpips_w = float(loss_cfg.lpips_w)
+        if not pretrained and lpips_w > 0:
+            lpips_w *= float(cfg.tpu.get("random_lpips_factor", 0.05))
+        if lpips_w > 0:
+            raise NotImplementedError(
+                f"LPIPS weight {lpips_w} > 0: losses/lpips.py is not "
+                "ported; it waits for pretrained VGG-LPIPS weights in the "
+                f"repository (tpu.lpips_weights={lpips_path!r}). Set "
+                "human.loss.lpips_w=0 or tpu.random_lpips_factor=0")
+        weights = LossWeights(
+            photometric=PhotometricWeights(
+                l1=loss_cfg.l1_w, ssim=loss_cfg.ssim_w, lpips=lpips_w,
+                num_patches=loss_cfg.num_patches,
+                patch_size=min(loss_cfg.patch_size,
+                               min(self.camera.height, self.camera.width)
+                               // 2 * 2),
+                grad_pyramid=float(loss_cfg.get("grad_pyramid_w", 0.0)),
+                grad_pyramid_levels=int(
+                    loss_cfg.get("grad_pyramid_levels", 3))),
+            silhouette=float(loss_cfg.get("silhouette_w", 0.0)),
+            l2=L2NormConfig(**{k: float(v)
+                               for k, v in loss_cfg.l2_norm.items()}),
+            mesh_edge=float(loss_cfg.mesh_edge),
+            gaussian_connect=float(loss_cfg.gaussian_connect),
+            lap_position_strength=float(loss_cfg.laplacian.position_strength),
+            lap_color_strength=float(loss_cfg.laplacian.color_strength),
+            lap_impose_from=int(loss_cfg.laplacian.impose_from_iter),
+        )
+        dc = hcfg.density_control.hybrid
+        self.inner_steps = int(cfg.tpu.get("inner_steps", 1) or 1)
+        knn_backend = str(cfg.tpu.get("knn_backend", "auto"))
+        if knn_backend == "auto":
+            knn_backend = "chunk" if self.inner_steps > 1 else "dense"
+        if knn_backend not in ("dense", "chunk"):
+            raise NotImplementedError(
+                f"tpu.knn_backend={knn_backend!r}: the port has the dense "
+                "KNN ('dense', 'chunk'); the windowed statistic waits")
+        self.step_cfg = step_cfg = StepConfig(
+            weights=weights, opt_geo_from=hcfg.opt_geo_from,
+            opt_app_from=hcfg.opt_app_from,
+            opacity_norm_from=max(dc.prune_until_iter, dc.densify_until_iter),
+            knn_backend=knn_backend, lap_shared=True)
+        self.train_step = make_train_step(
+            self.avatar_cfg, step_cfg, self.template, self.camera, self.tx,
+            None, self.raster_kw)
+        stat_fn = None
+        if knn_backend == "chunk":
+            acfg = self.avatar_cfg
+
+            def stat_fn(params, buffers):
+                with torch.no_grad():
+                    xyz = get_canon_xyz(params, buffers, acfg)
+                return edge_stat(xyz, buffers.alive, k=step_cfg.knn_k)
+        self.train_scan = make_train_scan(self.train_step, stat_fn)
+
+        self.lap_pos_w = torch.as_tensor(parse_region_weights(
+            loss_cfg.laplacian.position_regions_w,
+            DEFAULT_POSITION_REGIONS_W), device=dev)
+        self.lap_color_w = torch.as_tensor(parse_region_weights(
+            loss_cfg.laplacian.color_regions_w, DEFAULT_COLOR_REGIONS_W),
+            device=dev)
+        self._lap_pad = None
+        self._rebuild_laplacians()
+
+    def _init_attrs(self) -> None:
+        """Pre-fit the decoders (cfg.train.init_steps Adam steps), then
+        start the optimizer state afresh."""
+        targets = initial_attr_targets(self.avatar_cfg, self.tpl, self.cache,
+                                       device=self.device)
+        self.params, losses = fit_initial_attrs(
+            self.params, self.buffers, self.avatar_cfg, targets,
+            steps=int(self.cfg.train.init_steps))
+        if len(losses):
+            print(f"[init_attrs] loss {float(losses[0]):.5f} -> "
+                  f"{float(losses[-1]):.5f}", flush=True)
+        self.opt_state = self.tx.init(self.params)
+
+    def _rebuild_laplacians(self) -> None:
+        """Region laplacian of the live mesh (standard type, gather
+        backend; "auto" means gather in the port)."""
+        b = self.buffers
+        lap_type = str(self.cfg.human.loss.laplacian.type)
+        backend = str(self.cfg.tpu.get("laplacian_backend", "auto"))
+        if lap_type != "standard" or backend not in ("auto", "gather"):
+            raise NotImplementedError(
+                f"laplacian type={lap_type!r} backend={backend!r}: the port "
+                "has the standard laplacian with the gather backend")
+        edges = b.edges.cpu().numpy()[b.edge_valid.cpu().numpy() > 0.5]
+        labels = np.where(b.alive.cpu().numpy() > 0.5,
+                          b.vertex_label.cpu().numpy(), -1)
+        self.region_lap = build_region_laplacian(
+            edges, labels, self.lap_pos_w.cpu().numpy(), num_regions=15,
+            pad_to=self._lap_pad or 8, device=self.device)
+        self._lap_pad = max(self._lap_pad or 8,
+                            self.region_lap.neighbors.shape[1])
+
+    def train(self):
+        raise NotImplementedError(
+            "Trainer.train() (logging, validation, checkpoints, SH "
+            "annealing, density control) is a later slice of the port "
+            "(ROADMAP queue A 2); drive self.train_scan directly")
 
     # ------------------------------------------------------------------
     def _fit_synthetic_body(self):
@@ -239,7 +399,8 @@ class Trainer:
             return
         raise NotImplementedError(
             "fitting the synthetic template (keypoint + silhouette "
-            "refinement) belongs to the training slice; run with eval=True "
+            "refinement) is not ported yet (ROADMAP queue A 2); set "
+            "tpu.auto_fit_synthetic=False, run with eval=True "
             "or provide synthetic_fit.npz")
 
     def load_ckpt(self, path: str) -> None:
