@@ -4,25 +4,36 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the hand-written CUDA kernels from sings_tpu_torch/csrc with nvcc
-(one process per source, all started together), then drives the port's
-two main paths at the full width of the configs/human_complex.yaml
-avatar (synthetic SMPL-H template at synthetic_res 2.0, two
-subdivisions: 102,182 gaussians in 127,744 slots; nested 64^3 triplane,
-multires [1, 2, 4]; 512x512; pair_cap 4), with weights made from seed 0:
-the animation render, Trainer(cfg, mode="anim").animate_chunk, and the
+(one process per source, all started together) and the native mesh
+library with g++, then drives the port's main paths at the full width
+of the configs/human_complex.yaml avatar (synthetic SMPL-H template at
+synthetic_res 2.0, two subdivisions: 102,182 gaussians in 127,744 slots;
+nested 64^3 triplane, multires [1, 2, 4]; 512x512; pair_cap 4), with
+weights made from seed 0: the animation render,
+Trainer(cfg, mode="anim").animate_chunk, in both raster layouts; the
 training step, Trainer(cfg, mode="train").train_scan, as bench.py's
-recipe benchmark drives it (8 steps a chunk). Phases:
+recipe benchmark drives it (8 steps a chunk); and the training entry
+point, python -m sings_tpu_torch.cli.train (cli.train.main with the kit
+held in memory) with tpu.raster.layout=panel, resumed from a
+checkpoint. Phases:
 
   1 device      torch.cuda must be available; prints the card and limit
-  2 build       nvcc for sm_90a, timed
+  2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
+                each one kernel for both layouts) and g++ (mesh_native),
+                timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
                 Trainer(mode="anim")
   4 kernels     composite_fwd against its plain version on frame 0's
-                real inputs and on edge scenes
+                real inputs and on edge scenes; the panel kernels
+                against theirs and, bit for bit, against the tiled
+                kernels on frame 0 and on panel edge scenes (56x40 and
+                600 wide: padding sub-tiles; a saturating stack)
   5 main        animate_chunk(16 frames a chunk, 32 frames); counts
-                composite_fwd launches from 0
+                composite_fwd launches from 0; then the same 32 frames
+                with tpu.raster.layout=panel, equal to the tiled ones
+                (uint8, exact), counting composite_fwd_panel launches
   6 timing      CUDA-event times of composite_fwd and its plain version,
                 and the least time the card could take for the same work
   7 train setup config + HUMAN_COMPLEX_TRAIN_DOTLIST (the recipe's loss,
@@ -36,10 +47,32 @@ recipe benchmark drives it (8 steps a chunk). Phases:
                 respect to means, scales, quats, opacities, SH features
                 and screen_probe through the kernels against the same
                 through the plain versions
+                and the same for both panel kernels on the training
+                frame, bit for bit against the tiled kernels, and the
+                rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
                 composite_fwd and composite_bwd launches from 0
  10 timing      composite_bwd's CUDA-event time, its plain version's,
                 and its bound
+ 11 entry       the training entry point with layout=panel: the
+                recipe's 500-step pre-fit and one 8-step chunk, saved by
+                save_ckpt as the step-1990 checkpoint; then
+                cli.train.main on that run directory: its Trainer
+                resumes from it, train() runs to step 2014 with the
+                recipe's prune at 1998, a densify at 2006, the
+                validation at 2000 (60 pose-refine steps) and a
+                checkpoint at 2010, and the CLI writes its config, the
+                final meshes, the .splat, the animation and the a_pose /
+                da_pose turntables; events, live counts, zeroed Adam
+                moments, metrics, checkpoint resume, exports, the native
+                collapse and the panel kernels' launch counts (train()
+                and the whole CLI call) checked
+ 12 timing      on the trained avatar the CLI leaves (its first training
+                frame, the loss's cotangents): both panel kernels
+                against their plain versions and the tiled kernels, their
+                CUDA-event times against their plain versions' and
+                their bounds, the tiled kernels' on the same inputs; the
+                host-clock split of train()
 Every failure raises; the script exits 0 only when every phase passed,
 and then prints the kernels line and, last, the device line.
 """
@@ -101,8 +134,20 @@ HUMAN_COMPLEX_TRAIN_DOTLIST = [
     "human.lr.geometry=0.0005",
     "human.lr.vembed=0.0005",
     "human.lr.mlp_max_steps=16000",
+    "human.density_control.min_n_gaussians=100000",
+    "human.density_control.hybrid.densify_interval=1500",
+    "human.density_control.hybrid.densify_from_iter=3999",
     "human.density_control.hybrid.densify_until_iter=10000",
+    "human.density_control.hybrid.densify_grad_threshold=0.001",
+    "human.density_control.hybrid.densify_scale_threshold=0.005",
+    "human.density_control.hybrid.densify_render_size_threshold=20",
+    "human.density_control.hybrid.prune_interval=2000",
+    "human.density_control.hybrid.prune_from_iter=1998",
     "human.density_control.hybrid.prune_until_iter=12000",
+    "human.density_control.hybrid.prune_opacity_threshold=0.1",
+    "human.density_control.hybrid.prune_scale_threshold=0.0005",
+    "human.density_control.hybrid.prune_collapse_rate=0.5",
+    "human.density_control.hybrid.prune_max_n_gs_once=5000",
     "human.loss.ssim_w=0.2",
     "human.loss.l1_w=0.8",
     "human.loss.lpips_w=1.0",
@@ -123,12 +168,31 @@ HUMAN_COMPLEX_TRAIN_DOTLIST = [
     "human.loss.l2_norm.min_opacity_threshold=0.2",
     "human.loss.l2_norm.lambda_min_opacity=0.001",
     "tpu.random_lpips_factor=0.0",
+    "tpu.val_pose_refine_steps=60",
+    "train.save_ckpt_interval=5000",
+    "train.val_interval=3000",
+    "train.viz_interval=3000",
+    "train.anim_interval=3000",
 ]
 # what bench.py's recipe benchmark sets, with a short pre-fit instead of
 # its 1 step, and the recipe's 8-step chunks stated
 BENCH_TRAIN_DOTLIST = ["train.init_steps=10", "tpu.auto_fit_synthetic=False",
                        "tpu.inner_steps=8"]
 TRAIN_STEP0 = 2000  # both warmup gates open, laplacian ramp at 1
+# the training entry point (phase 11): resume at CKPT_STEP, train to
+# ENTRY_STEPS with the recipe's prune at 1998 and these moves so that
+# each event fires once in the window: a densify at 2006 (the recipe's
+# first is at 3999), a validation at 2000 (recipe: every 3000) and a
+# checkpoint at 2010 (recipe: every 5000)
+CKPT_STEP, ENTRY_STEPS = 1990, 2014
+# the recipe's decoder pre-fit (train.init_steps), run before the
+# checkpoint is written, so that the avatar's splats have the sizes the
+# recipe starts from rather than those of BENCH_TRAIN_DOTLIST's 10 steps
+RECIPE_INIT_STEPS = 500
+ENTRY_DOTLIST = ["tpu.raster.layout=panel", f"train.num_steps={ENTRY_STEPS}",
+                 "human.density_control.hybrid.densify_from_iter=2006",
+                 "train.val_interval=2000", "train.save_ckpt_interval=2010"]
+ENTRY_EVENTS = [1998, 2000, 2006, 2010]
 
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12
@@ -153,6 +217,10 @@ ATOL = 1e-4
 MAX_FLIP_FRACTION = 1e-5
 FLIP_ATOL = 5e-2
 SEED = 0
+# largest kernel-vs-plain error of each panel kernel over every check
+PANEL_ERRS = {"composite_fwd_panel": 0.0, "composite_bwd_panel": 0.0}
+# the CUDA sources, each one kernel for both layouts
+SOURCES = ["composite_fwd", "composite_bwd"]
 
 
 def log(msg: str) -> None:
@@ -273,6 +341,114 @@ def composite_inputs(gauss, cam, kw):
                                 n_tiles_x=ntx, n_tiles_y=nty)
 
 
+def tile_load(binning) -> str:
+    """Pairs per tile of a binning: the largest segment and the mean over
+    tiles that hold any (one CTA walks one tile's segment)."""
+    seg = binning.tile_offsets[1:] - binning.tile_offsets[:-1]
+    busy = seg[seg > 0].float()
+    mean = float(busy.mean()) if busy.numel() else 0.0
+    return (f"pairs per tile max {int(seg.max())}, mean {mean:.1f} over "
+            f"{busy.numel()} non-empty tiles")
+
+
+def panel_kw(ckw: dict) -> dict:
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    return dict(ckw, pw=K.panel_width(ckw["tile"]))
+
+
+def to_planes(tiles, ckw: dict, t_pad: float):
+    """(T, 8, npx) tile rows -> (4, Hp, Wp) planes, t_pad in row 3 of the
+    padding sub-tiles (1 for a forward output, 0 for cotangents)."""
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    planes = K.tiles_to_planes(tiles, pw=K.panel_width(ckw["tile"]),
+                               **{k: ckw[k] for k in ("tile", "n_tiles_x",
+                                                      "n_tiles_y")})
+    planes[3, :, ckw["n_tiles_x"] * ckw["tile"]:] = t_pad
+    return planes.contiguous()
+
+
+def check_panel(name: str, feats, binning, ckw: dict, gout_planes) -> tuple:
+    """Both panel kernels against their plain versions, and bit for bit
+    against the tiled kernels on the same inputs relaid out. Returns
+    (forward max error, backward max error)."""
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    pkw = panel_kw(ckw)
+    lay = {k: ckw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
+    offs = binning.tile_offsets
+    fwd_t = K.composite_fwd_cuda(feats, offs, **ckw)
+    fwd_p = K.composite_fwd_cuda(feats, offs, **pkw)
+    torch.cuda.synchronize()
+    err_f = check_close(f"composite_fwd_panel {name}", fwd_p,
+                        K.composite_fwd_plain(feats, offs, **pkw))
+    if not torch.equal(fwd_p, K.tiles_to_planes(fwd_t, pw=pkw["pw"],
+                                                **lay)):
+        raise AssertionError(f"{name}: composite_fwd_panel is not bitwise "
+                             "equal to composite_fwd relaid out")
+    edge = ckw["n_tiles_x"] * ckw["tile"]
+    if fwd_p.shape[2] > edge and not (
+            bool((fwd_p[:3, :, edge:] == 0).all())
+            and bool((fwd_p[3, :, edge:] == 1).all())):
+        raise AssertionError(f"{name}: padding sub-tiles not colour 0, T 1")
+    args = (feats, offs, binning.grad_offsets)
+    cap = binning.pair_slot_capacity
+    g_p = K.composite_bwd_cuda(*args, fwd_p, gout_planes,
+                                     grad_cap=cap, **pkw)
+    g_t = K.composite_bwd_cuda(*args, fwd_t, K.planes_to_tiles(
+        gout_planes, **lay).contiguous(), grad_cap=cap, **ckw)
+    torch.cuda.synchronize()
+    err_b = check_bwd(f"panel {name}", g_p, K.composite_bwd_plain(
+        *args, fwd_p, gout_planes, grad_cap=cap, **pkw), binning)
+    if not torch.equal(g_p, g_t):
+        raise AssertionError(f"{name}: composite_bwd_panel is not bitwise "
+                             "equal to composite_bwd")
+    log(f"[kernels] panel {name}: planes {tuple(fwd_p.shape)}, bitwise "
+        "equal to the tiled kernels (forward and backward)")
+    return err_f, err_b
+
+
+def panel_edge_scenes(dev, ekw) -> tuple:
+    """56x40 (ntx 4 < pw 8) and 600x200 (ntx 38, Wp 640): padding
+    sub-tiles; a 300-deep saturating stack: early exit."""
+    errs = []
+    for seed, (h, w) in ((21, (40, 56)), (22, (200, 600))):
+        g, cam = random_scene(300, h, w, seed, dev)
+        feats, b, ckw = composite_inputs(g, cam, ekw)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gout = torch.randn((4,) + tuple(panel_shape(ckw)), generator=gen,
+                           device=dev)
+        errs.append(check_panel(f"{w}x{h} padding sub-tiles", feats, b, ckw,
+                                gout))
+    n = 300
+    stack = [torch.tensor([[0.0, 0.0, 3.0]]).repeat(n, 1),
+             torch.full((n, 3), 0.2),
+             torch.tensor([[1.0, 0, 0, 0]]).repeat(n, 1),
+             torch.full((n,), 0.95),
+             torch.rand(n, 3, generator=torch.Generator().manual_seed(2))]
+    stack[0][:, 2] += torch.linspace(0, 0.5, n)
+    stack = [t.to(dev) for t in stack]
+    cam = random_scene(1, 64, 64, 0, dev)[1]
+    feats, b, ckw = composite_inputs(stack, cam, ekw)
+    gout = torch.randn((4,) + tuple(panel_shape(ckw)), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(23))
+    errs.append(check_panel("saturating stack", feats, b, ckw, gout))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def note_panel_errs(errs: tuple) -> None:
+    for name, err in zip(PANEL_ERRS, errs):
+        PANEL_ERRS[name] = max(PANEL_ERRS[name], err)
+
+
+def panel_shape(ckw: dict) -> tuple:
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    return K.panel_shape(**{k: v for k, v in panel_kw(ckw).items()
+                            if k != "chunk"})
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -300,13 +476,17 @@ def main(argv=None) -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    from sings_tpu_torch.mesh import native
     from sings_tpu_torch.ops import cuda_build
 
     # ---- 2 build
     t0 = time.time()
-    cuda_build.build(["composite_fwd", "composite_bwd"])
-    log(f"[build] composite_fwd, composite_bwd built in "
-        f"{time.time() - t0:.1f}s (one nvcc each, started together)")
+    cuda_build.build(SOURCES)
+    t1 = time.time()
+    if native.get_lib() is None:
+        raise AssertionError("g++ build of csrc/mesh_native.cpp failed")
+    log(f"[build] {', '.join(SOURCES)} built in {t1 - t0:.1f}s (one nvcc "
+        f"each, started together); mesh_native in {time.time() - t1:.1f}s")
     for name, info in cuda_build.BUILD_LOG.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -408,6 +588,13 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
             K.composite_fwd_plain(f_, b_.tile_offsets, **c_)))
         if float(out_e[:, 3].amin(dim=1).max()) != 1.0:
             raise AssertionError("empty tiles must keep T == 1")
+        # the panel kernels on frame 0 (random cotangents: the animation
+        # has none) and on the panel edge scenes
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+        note_panel_errs(check_panel(
+            "full width frame 0", feats, binning, ckw, torch.randn(
+                (4,) + tuple(panel_shape(ckw)), generator=gen, device=dev)))
+        note_panel_errs(panel_edge_scenes(dev, ekw))
 
         # the whole frame through the plain version, for phase 5
         color, t_final = tiles_to_image(want, RasterConfig(
@@ -453,6 +640,27 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         raise AssertionError("main-path frame 0 disagrees with the plain "
                              "version's render")
 
+    # ---- 5b the same animation in the panel layout
+    tiled_frames = dict(frames)
+    frames.clear()
+    trainer.raster_kw["layout"] = "panel"
+    K.reset_launches()
+    torch.cuda.synchronize()
+    fps_p = trainer.animate_chunk(chunk_size=16, max_frames=32,
+                                  save_video=False, writer=writer)
+    panel_launches = dict(K.LAUNCHES)
+    trainer.raster_kw["layout"] = "tiled"
+    same = [np.array_equal(frames[i], tiled_frames[i]) for i in range(32)]
+    log(f"[main panel] {len(frames)} frames at {fps_p:.2f} fps, launches "
+        f"{panel_launches}, equal to the tiled frames: {sum(same)}/32")
+    if sorted(frames) != list(range(32)) or not all(same):
+        raise AssertionError("panel-layout frames differ from the tiled "
+                             "layout's")
+    if (panel_launches["composite_fwd_panel"] != 32
+            or panel_launches["composite_fwd"] != 0):
+        raise AssertionError(f"panel animation launches {panel_launches}, "
+                             "expected 32 composite_fwd_panel and 0 tiled")
+
     # ---- 6 timing at frame 0's shapes
     offs = binning.tile_offsets
     ms = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
@@ -481,7 +689,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         profile(trainer, gs_attrs, frame0, kw, profile_dir)
     del trainer, gs_attrs, posed, frame0, feats, binning, want, got
     torch.cuda.empty_cache()
-    kernels.append(run_train(work, dev, smi, profile_dir))
+    kernels.extend(run_train(work, dev, smi, profile_dir))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -615,6 +823,15 @@ MAX_BWD_FLIP_FRACTION = 1e-4
 # d/dquats is zero up to rounding on both sides and is not compared: both
 # must stay below ZERO_GRAD_REL of the largest d/dscales instead
 GRAD_ATOL_REL, GRAD_RTOL, ZERO_GRAD_REL = 2e-4, 2e-3, 1e-5
+
+
+def train_dotlist(work: str, extra=()) -> list:
+    return (HUMAN_COMPLEX_DOTLIST + HUMAN_COMPLEX_TRAIN_DOTLIST
+            + BENCH_TRAIN_DOTLIST + [
+                f"output_path={work}", "exp_name=smoke_train",
+                "dataset.name=kit", f"seed={SEED}",
+                f"tpu.smpl_model_dir={work}/no_licensed_models"]
+            + list(extra))
 
 
 def make_train_kit(frames: int = 9, size: int = 512):
@@ -777,13 +994,14 @@ class plain_composites:
         api.composite_fwd, api.composite_bwd = self.saved
 
 
-def rasterize_grads(trainer, leaves, loss_of):
+def rasterize_grads(trainer, leaves, loss_of, layout="tiled"):
     from sings_tpu_torch.ops.rasterizer.api import rasterize
 
     out = rasterize(*leaves[:5], trainer.camera, sh_degree=3,
                     bg=torch.zeros(3, device=trainer.device),
                     alive=trainer.buffers.alive > 0.5,
-                    screen_probe=leaves[5], **trainer.raster_kw)
+                    screen_probe=leaves[5],
+                    **dict(trainer.raster_kw, layout=layout))
     loss = loss_of(out["render"], out["transmittance"])
     return loss, torch.autograd.grad(loss, leaves)
 
@@ -843,13 +1061,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
 
     # ---- 7 train setup
     t0 = time.time()
-    cfg = load_config(
-        DEFAULTS, None, HUMAN_COMPLEX_DOTLIST + HUMAN_COMPLEX_TRAIN_DOTLIST
-        + BENCH_TRAIN_DOTLIST + [
-            f"output_path={work}", "exp_name=smoke_train",
-            "dataset.name=kit", f"seed={SEED}",
-            f"tpu.smpl_model_dir={work}/no_licensed_models"])
-    trainer = Trainer(cfg, mode="train", device=dev, kit=make_train_kit())
+    cfg = load_config(DEFAULTS, None, train_dotlist(work))
+    trainer = Trainer(cfg, mode="train", device=dev, kit=make_train_kit(),
+                      image_writer=lambda path, img: None)
     seed_train_targets(trainer)
     acfg = trainer.avatar_cfg
     n_live = int(trainer.buffers.alive.sum())
@@ -886,7 +1100,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     log(f"[kernels] training frame 0: feats {tuple(feats.shape)}, pairs "
         f"{n_pairs}, walked {walked}, compositing pair-pixels "
         f"{composited}, overflow {int(binning.overflow)}, "
-        f"grad_cap {binning.pair_slot_capacity}")
+        f"grad_cap {binning.pair_slot_capacity}, {tile_load(binning)}")
     max_err = check_bwd("training frame 0 (the loss's cotangents)", got,
                         want, binning)
     ekw = dict(tile=16, chunk=128, max_span=8, max_pairs=None, main_width=4,
@@ -919,7 +1133,24 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"{float(loss_p.detach()):.6f}")
     check_grads(names, grads_k, grads_p,
                 trainer.avatar_cfg.isotropic)
-    del grads_k, grads_p, got, want, leaves
+    del grads_k, grads_p, got, want
+    # the panel kernels on the training frame's own cotangents, and the
+    # rasterize gradients in the panel layout
+    note_panel_errs(check_panel("training frame 0 (the loss's "
+                                "cotangents)", feats, binning, ckw,
+                                to_planes(gout, ckw, 0.0)))
+    K.reset_launches()
+    loss_k, grads_k = rasterize_grads(trainer, leaves, loss_of, "panel")
+    with plain_composites():
+        loss_p, grads_p = rasterize_grads(trainer, leaves, loss_of, "panel")
+    log(f"[kernels] panel rasterize loss through the kernels "
+        f"{float(loss_k.detach()):.6f}, through the plain versions "
+        f"{float(loss_p.detach()):.6f}, launches {dict(K.LAUNCHES)}")
+    if (K.LAUNCHES["composite_fwd_panel"], K.LAUNCHES["composite_bwd_panel"],
+            K.LAUNCHES["composite_fwd"]) != (1, 1, 0):
+        raise AssertionError("panel rasterize did not run the panel kernels")
+    check_grads(names, grads_k, grads_p, trainer.avatar_cfg.isotropic)
+    del grads_k, grads_p, leaves
 
     # ---- 9 main path: 2 train_scan calls, 16 steps
     state = (trainer.params, trainer.buffers, trainer.opt_state)
@@ -998,7 +1229,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"step | {smi}")
     if profile_dir:
         profile_train(trainer, batches, bargs, bkw, profile_dir)
-    return {
+    bwd_row = {
         "name": "composite_bwd", "route": "cuda",
         "source": "sings_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "sings_tpu/ops/rasterizer/pallas_kernels.py:912",
@@ -1008,6 +1239,346 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }
+    # ---- 11 the training entry point, 12 its timing
+    del p, b, o, state, bargs, feats, binning, fwd_out, gout
+    return [bwd_row] + run_entry(work, dev, trainer, batches, smi)
+
+
+# ---------------------------------------------------------------------------
+# the training entry point (phases 11-12)
+
+def run_entry(work: str, dev, old, batches, smi: str) -> list:
+    """Phase 11: on `old`, the recipe's pre-fit and one 8-step chunk
+    (steps 1982-1989), saved by save_ckpt as the step-1990 checkpoint;
+    then the training entry point, cli.train.main with ENTRY_DOTLIST over
+    the same run directory: its Trainer resumes from that checkpoint,
+    train() runs to ENTRY_STEPS, and the CLI writes its exports.
+    Phase 12 on the trainer the CLI leaves. Returns the panel kernels'
+    rows of the kernels line."""
+    from sings_tpu_torch.cli import train as cli_train
+    from sings_tpu_torch.config.core import load_config
+    from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.mesh import native
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.train.trainer import Trainer
+    from sings_tpu_torch.tree import tree_leaves
+
+    t0 = time.time()
+    old.cfg.train.init_steps = RECIPE_INIT_STEPS
+    old._init_attrs()
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k = len(batches["idx"])
+    (old.params, old.buffers, old.opt_state, losses, skipped,
+     _) = old.train_scan(old.params, old.buffers, old.opt_state, old.cache,
+                         batches, old.step_generator, CKPT_STEP - k,
+                         old.active_sh_degree, old.region_lap, old.region_lap,
+                         old.lap_pos_w, old.lap_color_w)
+    log(f"[entry] pre-fit {RECIPE_INIT_STEPS} steps in {t_fit:.1f}s, then "
+        f"steps {CKPT_STEP - k}-{CKPT_STEP - 1}: losses "
+        f"{[round(x, 4) for x in losses.tolist()]}, skipped "
+        f"{int(skipped.sum())}")
+    old.step = CKPT_STEP
+    ck_path = old.save_ckpt(f"{CKPT_STEP:06d}")
+    saved = [old.params, old.opt_state]
+    kit = make_train_kit()._replace(images=old.images.cpu().numpy(),
+                                    masks=old.masks.cpu().numpy())
+    del old
+    torch.cuda.empty_cache()
+    argv = ["--device", "cuda"] + train_dotlist(
+        work, ENTRY_DOTLIST + [f"anim_cfg_path={work}/anim.json"])
+    log(f"[entry] dotlist over the recipe: {ENTRY_DOTLIST}")
+    log(f"[entry] python -m sings_tpu_torch.cli.train {' '.join(argv)} "
+        "(the kit held in memory: cli.train.main(argv, kit=, "
+        "image_writer=))")
+
+    split = {"chunks": 0.0, "density": 0.0, "validation": 0.0,
+             "checkpoint": 0.0}
+    ran, density, vals, ckpts, written = [], [], [], [], []
+    held = {}
+    orig_train = Trainer.train
+
+    def train_checked(tr):
+        """The CLI trainer's train(): its resume and event schedule
+        checked, the loop's pieces timed, then the loop itself."""
+        count = int(tr.opt_state.count)
+        same = all(torch.equal(a, b_) for a, b_ in zip(
+            tree_leaves((tr.params, tr.opt_state.mu, tr.opt_state.nu)),
+            tree_leaves((saved[0], saved[1].mu, saved[1].nu))))
+        log(f"[entry] resumed {os.path.basename(ck_path)}: step {tr.step}, "
+            f"Adam count {count}, params and moments equal to the saved "
+            f"ones: {same}, raster {tr.raster_kw} ({time.time() - t0:.1f}s)")
+        if tr.step != CKPT_STEP or count != int(saved[1].count) or not same:
+            raise AssertionError("the resumed Trainer does not hold the "
+                                 "checkpoint's step and Adam state")
+        saved.clear()
+        events = [t for t in range(CKPT_STEP, ENTRY_STEPS)
+                  if tr._is_event(t)]
+        log(f"[entry] _is_event in [{CKPT_STEP}, {ENTRY_STEPS}): {events}")
+        if events != ENTRY_EVENTS:
+            raise AssertionError(f"events {events}, expected {ENTRY_EVENTS}")
+
+        def timed(fn, key, record=None):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                split[key] += time.perf_counter() - t
+                if record is not None:
+                    record(a, out)
+                return out
+            return call
+
+        apply = tr._apply_density_result
+
+        def apply_checked(res):
+            before = int(tr.buffers.alive.sum())
+            apply(res)
+            after = int(tr.buffers.alive.sum())
+            changed = torch.as_tensor(res.changed_slots, device=dev) > 0.5
+            mu, nu = tr.opt_state.mu.xyz[changed], tr.opt_state.nu.xyz[changed]
+            zero = (float(mu.abs().max()) == 0.0
+                    and float(nu.abs().max()) == 0.0)
+            log(f"[entry] density event after step {tr.step}: live "
+                f"{before} -> {after}, {int(changed.sum())} slots changed, "
+                f"Adam mu/nu zero there: {zero}")
+            if not zero:
+                raise AssertionError("Adam moments not zeroed at changed "
+                                     "slots")
+            density.append((tr.step, before, after))
+
+        tr._apply_density_result = apply_checked
+        tr.train_step = timed(tr.train_step, "chunks",
+                              lambda a, out: ran.append((a[6], 1)))
+        tr.train_scan = timed(tr.train_scan, "chunks", lambda a, out: ran.append(
+            (a[6], len(a[4]["idx"]))))
+        tr._adjust_density = timed(tr._adjust_density, "density")
+        tr.validate = timed(tr.validate, "validation",
+                            lambda a, out: vals.append((tr.step, out)))
+        tr.save_ckpt = timed(tr.save_ckpt, "checkpoint",
+                             lambda a, out: ckpts.append((tr.step, out)))
+        held.update(tr=tr, count=count, runs0=dict(native.COLLAPSE_RUNS),
+                    before=dict(K.LAUNCHES))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = orig_train(tr)
+        torch.cuda.synchronize()
+        split["wall"] = time.perf_counter() - t1
+        held["window"] = {name: K.LAUNCHES[name] - held["before"][name]
+                          for name in K.LAUNCHES}
+        return result
+
+    # ---- 11 main path: the CLI, launches counted from 0
+    Trainer.train = train_checked
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter()
+    try:
+        result = cli_train.main(argv, kit=kit, image_writer=lambda path, img:
+                                written.append((path, img.shape)))
+    finally:
+        Trainer.train = orig_train
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t_cli
+    launches = dict(K.LAUNCHES)
+    tr, window = held["tr"], held["window"]
+    wall = split["wall"]
+    split["other"] = wall - sum(v for k, v in split.items() if k != "wall")
+    log(f"[entry] cli.train.main: {t_cli:.3f}s host clock, train() "
+        f"{CKPT_STEP} -> {tr.step} {wall:.3f}s, exports "
+        f"{t_cli - wall:.3f}s; split {json.dumps({k: round(v, 3) for k, v in split.items()})}")
+    log(f"[entry] chunks (first step, steps): {ran}")
+    log(f"[entry] validations after step {[v[0] for v in vals]}, "
+        f"checkpoints {[(c[0], os.path.basename(c[1])) for c in ckpts]}, "
+        f"density {density}, collapse runs {native.COLLAPSE_RUNS}")
+    log(f"[entry] final validation {json.dumps(result)}")
+
+    # events at the predicted steps; no chunk crosses one
+    steps = [t for t0_, k in ran for t in range(t0_, t0_ + k)]
+    if steps != list(range(CKPT_STEP, ENTRY_STEPS)):
+        raise AssertionError(f"steps run {steps}")
+    singles = [t for t, k in ran if k == 1]
+    if not set(ENTRY_EVENTS) <= set(singles):
+        raise AssertionError(f"event steps not run alone: {ran}")
+    if [v[0] for v in vals] != [2000, ENTRY_STEPS] or result != vals[-1][1]:
+        raise AssertionError(f"validations after steps {vals}, CLI result "
+                             f"{result}")
+    if [(c[0], os.path.basename(c[1])) for c in ckpts] != [
+            (2010, "human_002010.npz"), (ENTRY_STEPS, "human_final.npz")]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    if not any(before != after for _, before, after in density):
+        raise AssertionError(f"no density event changed the live count: "
+                             f"{density}")
+    runs0 = held["runs0"]
+    if native.COLLAPSE_RUNS["native"] <= runs0["native"] or \
+            native.COLLAPSE_RUNS["numpy"] != runs0["numpy"]:
+        raise AssertionError("the native edge collapse did not run")
+    for it, res in vals:
+        for key in ("psnr", "ssim", "lpips", "psnr_masked", "psnr_composite",
+                    "psnr_masked_refined", "psnr_masked_aligned",
+                    "psnr_masked_train", "scales_p99", "opacity_mean"):
+            if not math.isfinite(res.get(key, float("nan"))):
+                raise AssertionError(f"validation after {it}: {key} "
+                                     f"missing or not finite")
+    if int(tr.opt_state.count) != held["count"] + ENTRY_STEPS - CKPT_STEP:
+        raise AssertionError(f"Adam count {int(tr.opt_state.count)}")
+
+    # the launches the window implies: one of each panel kernel a step;
+    # per validation and val frame a render, a gauge-aligned render, the
+    # refine steps (forward and backward each) and the refined render,
+    # plus the train-frame diagnostics' renders; then the CLI's exports:
+    # the .splat's render, the animation's frames and both turntables
+    n_steps = ENTRY_STEPS - CKPT_STEP
+    refine = int(tr.cfg.tpu.val_pose_refine_steps)
+    n_val = len(tr.kit.val_split)
+    n_diag = len(tr.kit.train_split[::max(1, len(tr.kit.train_split)
+                                          // 8)][:8])
+    n_anim = tr.anim_dataset.num_frames
+    # animate_chunk renders whole 16-frame chunks, the last one padded
+    n_anim_renders = -(-n_anim // 16) * 16
+    n_canon = int(tr.cfg.human.canon_nframes)
+    want = {"composite_fwd_panel": n_steps + len(vals) * (
+                n_val * (3 + refine) + n_diag),
+            "composite_bwd_panel": n_steps + len(vals) * n_val * refine,
+            "composite_fwd": 0, "composite_bwd": 0}
+    want_all = dict(want, composite_fwd_panel=want["composite_fwd_panel"]
+                    + 1 + n_anim_renders + 2 * n_canon)
+    log(f"[entry] launches in train() {window}, expected {want} ({n_steps} "
+        f"steps, {len(vals)} validations of {n_val} val frame(s) with "
+        f"{refine} refine steps and {n_diag} train-frame renders); in the "
+        f"whole CLI call {launches}, expected {want_all} (+1 .splat render, "
+        f"{n_anim_renders} animation renders, 2 x {n_canon} turntable "
+        "frames)")
+    if window != want or launches != want_all:
+        raise AssertionError("panel kernel launches differ from the count "
+                             "the CLI run implies")
+
+    # the CLI's outputs
+    cfg_path = os.path.join(tr.logdir, "config_train.yaml")
+    back = load_config(DEFAULTS, cfg_path)
+    mesh_dir = os.path.join(tr.logdir, "meshes")
+    sizes = {f: os.path.getsize(os.path.join(mesh_dir, f))
+             for f in sorted(os.listdir(mesh_dir)) if "final" in f}
+    sizes["showcase.splat"] = os.path.getsize(os.path.join(
+        tr.logdir, "showcase.splat"))
+    kinds = {}
+    for path, shape in written:
+        kind = os.path.basename(os.path.dirname(path))
+        if kind == "canon":
+            kind = os.path.basename(path).rsplit("_", 1)[0]
+        kinds.setdefault(kind, set()).add(tuple(shape))
+        kinds[kind + " images"] = kinds.get(kind + " images", 0) + 1
+    log(f"[entry] exports {sizes}; images {json.dumps({k: v if isinstance(v, int) else sorted(v) for k, v in kinds.items()})}; "
+        f"config_train.yaml reads back: layout {back.tpu.raster.layout}, "
+        f"num_steps {back.train.num_steps}")
+    if len(sizes) != 3 or min(sizes.values()) == 0:
+        raise AssertionError("an export is empty")
+    if (kinds.get("a_pose images"), kinds.get("da_pose images"),
+            kinds.get("anim images"), kinds.get("a_pose")) != (
+            n_canon, n_canon, n_anim, {(256, 256, 3)}):
+        raise AssertionError("the CLI's turntables or animation frames "
+                             "are missing")
+    if (back.tpu.raster.layout, back.train.num_steps) != ("panel",
+                                                          ENTRY_STEPS):
+        raise AssertionError("config_train.yaml does not read back")
+
+    rows = panel_timing(tr, launches, split, smi)
+
+    # the step-2010 checkpoint resumes to its step
+    path = os.path.join(tr.logdir_ckpt, "human_002010.npz")
+    if not tr.load_ckpt(path) or tr.step != 2010:
+        raise AssertionError("the step-2010 checkpoint does not resume")
+    log(f"[entry] {os.path.basename(path)} resumes to step {tr.step}, Adam "
+        f"count {int(tr.opt_state.count)}")
+    return rows
+
+
+def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
+    """Phase 12, on the trainer the CLI left at step ENTRY_STEPS: its
+    first training frame and the loss's own cotangents (the scene the
+    train() window rendered). Both panel kernels against their plain
+    versions and, bit for bit, the tiled kernels; their CUDA-event times
+    and their plain versions', with bounds counted as the tiled kernels'
+    are; the tiled kernels' times on the same inputs; the loop's
+    host-clock split. Returns the panel kernels' kernels-line rows."""
+    from sings_tpu_torch.losses.photometric import draw_step_randoms
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    batch0 = {name: v[0] for name, v in train_batches(tr).items()}
+    draws0 = draw_step_randoms(
+        torch.Generator(device=tr.device).manual_seed(SEED), batch0["mask"],
+        tr.step_cfg.weights.photometric)
+    leaves, loss_of = step_render_inputs(tr, batch0, draws0)
+    feats, binning, fwd_t, gout_t, ckw = composite_bwd_inputs(tr, leaves,
+                                                              loss_of)
+    del leaves
+    offs, goffs = binning.tile_offsets, binning.grad_offsets
+    cap = binning.pair_slot_capacity
+    pkw = panel_kw(ckw)
+    gout_p = to_planes(gout_t, ckw, 0.0)
+    note_panel_errs(check_panel("train() window's frame (the loss's "
+                                "cotangents)", feats, binning, ckw, gout_p))
+    fwd_p = K.composite_fwd_cuda(feats, offs, **pkw)
+    _, walked, composited = K.composite_bwd_plain(
+        feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, return_counts=True,
+        **pkw)
+    hp, wp = fwd_p.shape[1:]
+    n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
+    npx = ckw["tile"] ** 2
+    log(f"[timing] the window's frame {int(batch0['idx'])} at step "
+        f"{tr.step}: {int(tr.buffers.alive.sum())} live gaussians, pairs "
+        f"{int(binning.num_pairs)}, walked {walked}, compositing "
+        f"pair-pixels {composited}, overflow {int(binning.overflow)}, "
+        f"{tile_load(binning)}")
+    rows = []
+    for name, fn, plain, ops, nbytes in (
+            ("composite_fwd_panel",
+             lambda: K.composite_fwd_cuda(feats, offs, **pkw),
+             lambda: K.composite_fwd_plain(feats, offs, **pkw),
+             OPS_PER_PAIR_PIXEL * walked * npx,
+             4 * (9 * walked + (n_tiles + 1) + 4 * hp * wp)),
+            ("composite_bwd_panel",
+             lambda: K.composite_bwd_cuda(
+                 feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, **pkw),
+             lambda: K.composite_bwd_plain(
+                 feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, **pkw),
+             OPS_PER_PAIR_PIXEL_BWD * walked * npx
+             + OPS_PER_COMPOSITE_BWD * composited,
+             4 * (9 * walked + 2 * (n_tiles + 1) + 2 * 4 * hp * wp
+                  + 9 * cap))):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, n=5, warm=1)
+        ops_ms = ops / H100_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"[timing] {name} {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes "
+            f"{bytes_ms:.4f} ms), {launches[name]} launches in the CLI "
+            f"call | {smi}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "sings_tpu_torch/csrc/"
+                      + name.replace("_panel", "") + ".cu",
+            "replaces": "sings_tpu/ops/rasterizer/pallas_kernels.py:"
+                        + ("789" if name == "composite_fwd_panel" else "827"),
+            "launches": launches[name], "max_abs_err": PANEL_ERRS[name],
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+        })
+    tiled_f = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
+    tiled_b = cuda_ms(lambda: K.composite_bwd_cuda(
+        feats, offs, goffs, fwd_t, gout_t, grad_cap=cap, **ckw))
+    log(f"[timing] for comparison, the tiled layout on the same inputs: "
+        f"composite_fwd {tiled_f:.4f} ms, composite_bwd {tiled_b:.4f} ms "
+        f"| {smi}")
+    wall = split["wall"]
+    log("[timing] train() window " + ", ".join(
+        f"{k} {v:.3f}s ({100 * v / wall:.1f}%)" for k, v in split.items()
+        if k != "wall") + f" of {wall:.3f}s host clock | {smi}")
+    return rows
 
 
 def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:

@@ -3,12 +3,13 @@
 Mirrors the reference's OmegaConf three-way merge
 (scripts/train_avatar.py:86-91) without the omegaconf dependency (not in
 this image): a nested-dict tree with attribute access, deep merge, YAML
-loading, and `key.sub=value` dotlist overrides with literal-eval typing.
+or JSON loading, and `key.sub=value` dotlist overrides with literal-eval typing.
 """
 from __future__ import annotations
 
 import ast
 import copy
+import json
 from typing import Any
 
 
@@ -70,23 +71,34 @@ def parse_dotlist(items: list[str]) -> dict:
     return root
 
 
+def _read_tree(path: str) -> dict:
+    """A config file's tree: JSON when the text is a JSON object (what
+    save_config writes; JSON is also YAML), otherwise YAML, with PyYAML
+    imported only then."""
+    with open(path) as fh:
+        text = fh.read()
+    if text.lstrip().startswith("{"):
+        return json.loads(text)
+    import yaml
+
+    return yaml.safe_load(text) or {}
+
+
 def load_config(defaults: dict, yaml_path: str | None = None,
                 dotlist: list[str] | None = None) -> Config:
     cfg = Config.wrap(defaults)
     if yaml_path:
-        # PyYAML only when a file is given: a config built from DEFAULTS
-        # plus a dotlist needs no YAML parser
-        import yaml
-
-        with open(yaml_path) as fh:
-            cfg = deep_merge(cfg, yaml.safe_load(fh) or {})
+        # a parser only when a file is given: a config built from
+        # DEFAULTS plus a dotlist needs none
+        cfg = deep_merge(cfg, _read_tree(yaml_path))
     if dotlist:
         cfg = deep_merge(cfg, parse_dotlist(dotlist))
     return cfg
 
 
 def save_config(cfg: Config, path: str):
-    import yaml
-
+    """Write the config as a JSON object, which YAML readers (PyYAML,
+    the JAX package's load_config) read too; needs no YAML library."""
     with open(path, "w") as fh:
-        yaml.safe_dump(cfg.to_dict(), fh, sort_keys=False)
+        json.dump(cfg.to_dict(), fh, indent=2)
+        fh.write("\n")

@@ -1,8 +1,10 @@
-// Tile-based gaussian alpha compositing, backward, for Hopper (sm_90a).
+// Tile-based gaussian alpha compositing, backward, for Hopper (sm_90a),
+// in the rasterizer's two layouts.
 //
-// Replaces the TPU kernel composite_bwd / _bwd_kernel of
-// sings_tpu/ops/rasterizer/pallas_kernels.py and computes what it
-// computes: per-pair gradients of a tile's colour and transmittance
+// Replaces the TPU kernels composite_bwd / _bwd_kernel ("tiled") and
+// composite_bwd_panel / _bwd_kernel_panel ("panel") of
+// sings_tpu/ops/rasterizer/pallas_kernels.py and computes what they
+// compute: per-pair gradients of a tile's colour and transmittance
 // cotangents with respect to each pair's 2D mean, conic, rgb and
 // opacity, written to the aligned gradient buffer that the un-sort glue
 // of ops/rasterizer/api.py gathers from.
@@ -10,8 +12,9 @@
 //   feats        (16, stride) f32 pair features (rows as composite_fwd)
 //   offsets      (T + 1,) int32 unaligned segment offsets
 //   grad_offsets (T + 1,) int32 aligned gradient-region offsets
-//   fwd_out      (T, 8, npx) f32 composite_fwd's output (rows 0..3 used)
-//   gout         (T, 8, npx) f32 cotangents (rows 0..2 colour, 3 T_final)
+//   fwd_out      composite_fwd's output in either layout (rows 0..3 read)
+//   gout         cotangents in the same layout (rows 0..2 colour,
+//                3 T_final; zero outside the image in the panel planes)
 //   grads        (9, gstride) f32, zero-filled by the wrapper: window c of
 //                tile t writes columns grad_offsets[t] + c * chunk + k
 //                rows 0 d_mean_x | 1 d_mean_y | 2..4 d_conic a, b, c |
@@ -19,7 +22,7 @@
 //
 // Closed form (the TPU kernel's): walking front to back with the same
 // chunk-aligned windows, termination flags and tile exit as
-// composite_fwd.cu (the arithmetic is shared in composite_common.cuh),
+// composite_fwd.cu (the walk is shared in composite_common.cuh),
 // with per-pixel constants cfg = sum_k g_k C_final_k and
 // gtf = g_t T_final, for every pair that composites at a pixel:
 //   w = alpha T_before,  gc = sum_k g_k rgb_k,  upg += w gc (inclusive)
@@ -32,8 +35,14 @@
 // as if alpha = op G even where the 0.99 clamp was active, the TPU
 // kernel's (and the CUDA reference's) quirk, reproduced on purpose.
 //
-// Design: one CTA per tile, one thread per pixel; each window's 9 used
-// feature rows are staged in shared memory as in the forward. Per pair,
+// Design: one CTA per tile, one thread per pixel, each reading its 8
+// inputs at the layout's address (the TPU panel kernel's selection-
+// matmul relayout and chunk-0 prefetch are not needed); each window's 9
+// used feature rows are staged in shared memory as in the forward. The
+// constants cfg and gtf come from one expression for both layouts (the
+// TPU's two layouts differ there by ~1 ulp), so with -fmad=false the
+// layouts' gradients agree bit for bit. Padding sub-tiles of the panel
+// layout walk an empty segment and write nothing. Per pair,
 // each thread's 9 contributions are summed over its warp with shuffles
 // (skipped when no lane of the warp composites the pair, which is most
 // warps for small splats), lane 0 keeps the warp's sums in shared
@@ -61,17 +70,7 @@
 
 namespace {
 
-using composite::kTEps;
 using composite::kUsedRows;
-
-constexpr int kWarp = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __global__ void composite_bwd_kernel(const float* __restrict__ feats,
                                      long long stride,
@@ -81,135 +80,54 @@ __global__ void composite_bwd_kernel(const float* __restrict__ feats,
                                      const float* __restrict__ gout,
                                      float* __restrict__ grads,
                                      long long gstride, int tile, int chunk,
-                                     int n_tiles_x) {
+                                     int n_tiles_x, int row_tiles,
+                                     composite::PixelLayout lay) {
   extern __shared__ float smem[];
-  float* sm = smem;                       // [kUsedRows][chunk]
-  float* red = smem + kUsedRows * chunk;  // [warp][kUsedRows][chunk]
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int npx = blockDim.x;
-  const int lane = p % kWarp;
-  const int warp = p / kWarp;
-  const int n_warps = npx / kWarp;
-  const float px = static_cast<float>(p % tile);
-  const float py = static_cast<float>(p / tile);
-  const float ox = static_cast<float>(t % n_tiles_x) * tile;
-  const float oy = static_cast<float>(t / n_tiles_x) * tile;
-  const int start = offsets[t];
-  const int end = offsets[t + 1];
-  const int base = (start / chunk) * chunk;
-  const long long gbase = grad_offsets[t];
-
-  const float* fo = fwd_out + static_cast<long long>(t) * 8 * npx + p;
-  const float* go = gout + static_cast<long long>(t) * 8 * npx + p;
-  const float g_r = go[0], g_g = go[npx], g_b = go[2 * npx];
-  const float cfg = g_r * fo[0] + g_g * fo[npx] + g_b * fo[2 * npx];
-  const float gtf = go[3 * npx] * fo[3 * npx];
-
-  float T = 1.0f, upg = 0.0f;
-  int c = 0;
-  for (int win = base; win < end; win += chunk, ++c) {
-    if (__syncthreads_count(T >= kTEps) == 0) break;
-    composite::stage_window(sm, feats, stride, win, start, end, chunk);
-    __syncthreads();
-    const int lo = max(start - win, 0);
-    const int hi = min(end - win, chunk);
-    bool live = true;  // false after the pixel's walk stopped in this window
-    for (int k = lo; k < hi; ++k) {
-      float v[kUsedRows];
-#pragma unroll
-      for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
-      bool contrib = false;
-      composite::PairAlpha a;
-      if (live && composite::pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) {
-        float t_after;
-        if (composite::pair_composites(T, a.alpha, &t_after)) {
-          contrib = true;
-          const float w = a.alpha * T;
-          const float gc = sm[5 * chunk + k] * g_r + sm[6 * chunk + k] * g_g +
-                           sm[7 * chunk + k] * g_b;
-          upg += w * gc;
-          const float inv1m = 1.0f / (1.0f - a.alpha);
-          const float dl_da = T * gc - inv1m * ((cfg - upg) + gtf);
-          const float dl_dpow = sm[8 * chunk + k] * dl_da * a.gv;
-          const float u = dl_dpow * a.dx;
-          const float vv = dl_dpow * a.dy;
-          v[0] = u;
-          v[1] = vv;
-          v[2] = u * a.dx;
-          v[3] = u * a.dy;
-          v[4] = vv * a.dy;
-          v[5] = g_r * w;
-          v[6] = g_g * w;
-          v[7] = g_b * w;
-          v[8] = a.gv * dl_da;
-          T = t_after;
-        } else {
-          live = false;
-        }
-      }
-      float* rk = red + warp * kUsedRows * chunk + k;
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int r = 0; r < kUsedRows; ++r) v[r] = warp_sum(v[r]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kUsedRows; ++r) rk[r * chunk] = v[r];
-      }
-    }
-    __syncthreads();
-    float* gw = grads + gbase + static_cast<long long>(c) * chunk;
-    for (int i = p; i < kUsedRows * chunk; i += npx) {
-      const int row = i / chunk;
-      const int k = i - row * chunk;
-      if (k < lo || k >= hi) continue;
-      float s0 = 0.0f, s1 = 0.0f;
-      const int r0 = row < 2 ? 0 : row;
-      for (int w = 0; w < n_warps; ++w) {
-        s0 += red[(w * kUsedRows + r0) * chunk + k];
-        if (row < 2) s1 += red[(w * kUsedRows + 1) * chunk + k];
-      }
-      float val;
-      if (row == 0) {
-        val = -(sm[2 * chunk + k] * s0 + sm[3 * chunk + k] * s1);
-      } else if (row == 1) {
-        val = -(sm[4 * chunk + k] * s1 + sm[3 * chunk + k] * s0);
-      } else if (row == 2 || row == 4) {
-        val = -0.5f * s0;
-      } else if (row == 3) {
-        val = -s0;
-      } else {
-        val = s0;
-      }
-      gw[row * gstride + k] = val;
-    }
-  }
+  const composite::TilePixel tp = composite::tile_pixel(
+      offsets, grad_offsets, tile, n_tiles_x, row_tiles, lay);
+  const float* fo = fwd_out + tp.at;
+  const float* go = gout + tp.at;
+  const long long r = lay.row;
+  float cfg, gtf;
+  composite::pixel_grad_constants(go[0], go[r], go[2 * r], go[3 * r], fo[0],
+                                  fo[r], fo[2 * r], fo[3 * r], &cfg, &gtf);
+  composite::bwd_walk(smem, smem + kUsedRows * chunk, feats, stride,
+                      tp.start, tp.end, chunk,
+                      static_cast<float>(tp.tx) * tile,
+                      static_cast<float>(tp.ty) * tile,
+                      static_cast<float>(tp.px), static_cast<float>(tp.py),
+                      go[0], go[r], go[2 * r], cfg, gtf, grads, gstride,
+                      tp.gbase);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() of the launch.
+// Launch on `stream`; row_tiles 0 reads the tiled layout, row_tiles > 0
+// the panel planes over n_tiles_y * row_tiles tiles. Returns
+// cudaGetLastError() of the launch.
 extern "C" int composite_bwd_launch(const float* feats, long long stride,
                                     const int* offsets,
                                     const int* grad_offsets,
                                     const float* fwd_out, const float* gout,
                                     float* grads, long long gstride,
-                                    int n_tiles, int tile, int chunk,
-                                    int n_tiles_x, void* stream) {
-  if (n_tiles <= 0) return 0;
+                                    int n_tiles_y, int n_tiles_x, int tile,
+                                    int chunk, int row_tiles, void* stream) {
+  const composite::PixelLayout lay =
+      row_tiles > 0 ? composite::panel_layout(tile, n_tiles_y, row_tiles)
+                    : composite::tiled_layout(tile, n_tiles_x);
+  if (row_tiles <= 0) row_tiles = n_tiles_x;
+  if (n_tiles_y <= 0 || row_tiles <= 0) return 0;
   const int npx = tile * tile;
-  const size_t smem = static_cast<size_t>(kUsedRows) * chunk *
-                      (1 + npx / kWarp) * sizeof(float);
+  const size_t smem = composite::bwd_smem_bytes(chunk, npx);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  composite_bwd_kernel<<<n_tiles, npx, smem,
+  composite_bwd_kernel<<<n_tiles_y * row_tiles, npx, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       feats, stride, offsets, grad_offsets, fwd_out, gout, grads, gstride,
-      tile, chunk, n_tiles_x);
+      tile, chunk, n_tiles_x, row_tiles, lay);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,10 @@
-// Per-pair alpha and termination rule shared by composite_fwd.cu and
-// composite_bwd.cu, so that the backward walk stops exactly where the
-// forward walk stopped (a pair near the 1e-4 threshold must not get a
-// gradient that its forward never composited).
+// Per-pair alpha, termination rule, the two front-to-back walks and the
+// two output layouts, shared by composite_fwd.cu and composite_bwd.cu.
+// The backward walk stops exactly where the forward walk stopped (a
+// pair near the 1e-4 threshold must not get a gradient that its forward
+// never composited), and both layouts run the same instructions per
+// pixel, so they agree bit for bit: they differ only in where a pixel's
+// inputs and outputs live (PixelLayout).
 //
 // Rules (_chunk_alpha and the flag lines of the TPU kernels in
 // sings_tpu/ops/rasterizer/pallas_kernels.py): in tile-local
@@ -18,8 +21,61 @@
 namespace composite {
 
 constexpr int kUsedRows = 9;
+constexpr int kWarp = 32;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
+
+// Where row r (0..2 colour, 3 T_final) of pixel (py, px) of tile
+// (ty, tx) lives: r * row + ty * tile_row + tx * tile_col + py * pix_row
+// + px. rows: rows written by the forward (rows 4.. are zero).
+//   tiled: (T, 8, tile*tile) tile rows, T = n_tiles_y * n_tiles_x;
+//   panel: (4, Hp, Wp) image planes, Hp = n_tiles_y * tile,
+//          Wp = row_tiles * tile (the padded tile row).
+struct PixelLayout {
+  long long row, tile_row, tile_col, pix_row;
+  int rows;
+};
+
+inline PixelLayout tiled_layout(int tile, int n_tiles_x) {
+  const long long npx = static_cast<long long>(tile) * tile;
+  return {npx, n_tiles_x * 8 * npx, 8 * npx, tile, 8};
+}
+
+inline PixelLayout panel_layout(int tile, int n_tiles_y, int row_tiles) {
+  const long long wp = static_cast<long long>(row_tiles) * tile;
+  return {n_tiles_y * tile * wp, tile * wp, tile, wp, 4};
+}
+
+// The calling thread's tile and pixel in a grid of n_tiles_y * row_tiles
+// CTAs of tile * tile threads. Tiles past the image's last tile column
+// (tx >= n_tiles_x, the panel layout's padding sub-tiles) get the empty
+// segment [0, 0) and gradient base 0.
+struct TilePixel {
+  int tx, ty, px, py;
+  int start, end;
+  long long gbase;
+  long long at;  // offset of row 0 of this pixel in the layout
+};
+
+__device__ __forceinline__ TilePixel tile_pixel(const int* offsets,
+                                                const int* grad_offsets,
+                                                int tile, int n_tiles_x,
+                                                int row_tiles,
+                                                const PixelLayout& lay) {
+  TilePixel tp;
+  tp.ty = blockIdx.x / row_tiles;
+  tp.tx = blockIdx.x % row_tiles;
+  tp.px = threadIdx.x % tile;
+  tp.py = threadIdx.x / tile;
+  const bool real = tp.tx < n_tiles_x;
+  const int t = tp.ty * n_tiles_x + tp.tx;
+  tp.start = real ? offsets[t] : 0;
+  tp.end = real ? offsets[t + 1] : 0;
+  tp.gbase = (real && grad_offsets) ? grad_offsets[t] : 0;
+  tp.at = tp.ty * lay.tile_row + tp.tx * lay.tile_col + tp.py * lay.pix_row +
+          tp.px;
+  return tp;
+}
 
 struct PairAlpha {
   float alpha;  // clamped alpha
@@ -71,6 +127,176 @@ __device__ __forceinline__ void stage_window(float* sm,
     const int idx = win + (i - row * chunk);
     sm[i] = (idx >= start && idx < end) ? feats[row * stride + idx] : 0.0f;
   }
+}
+
+// Forward walk of one tile's segment [start, end) for the calling
+// thread's pixel (px, py) of the tile with origin (ox, oy): colour
+// without background into rgb[3], the final transmittance into *T_out.
+// Every thread of the block calls it (block barriers inside); an empty
+// segment (start == end) leaves colour 0 and T = 1. A tile stops once
+// every pixel has T < 1e-4 (__syncthreads_count), the TPU's per-tile
+// while-loop exit.
+__device__ __forceinline__ void fwd_walk(float* sm,
+                                         const float* __restrict__ feats,
+                                         long long stride, int start, int end,
+                                         int chunk, float ox, float oy,
+                                         float px, float py, float* rgb,
+                                         float* T_out) {
+  const int base = (start / chunk) * chunk;
+  float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int win = base; win < end; win += chunk) {
+    // also the barrier that keeps the previous window's reads ahead of
+    // this window's stores
+    if (__syncthreads_count(T >= kTEps) == 0) break;
+    stage_window(sm, feats, stride, win, start, end, chunk);
+    __syncthreads();
+    const int lo = max(start - win, 0);
+    const int hi = min(end - win, chunk);
+    for (int k = lo; k < hi; ++k) {
+      PairAlpha a;
+      if (!pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) continue;
+      float t_after;
+      // done for the rest of this window
+      if (!pair_composites(T, a.alpha, &t_after)) break;
+      const float w = a.alpha * T;
+      acc_r += w * sm[5 * chunk + k];
+      acc_g += w * sm[6 * chunk + k];
+      acc_b += w * sm[7 * chunk + k];
+      T = t_after;
+    }
+  }
+  rgb[0] = acc_r;
+  rgb[1] = acc_g;
+  rgb[2] = acc_b;
+  *T_out = T;
+}
+
+// The backward's per-pixel constants from the forward output (colour
+// f_*, final transmittance f_t) and the cotangents (g_*, g_t):
+// cfg = sum_k g_k C_final_k and gtf = g_t T_final. One expression for
+// both layouts.
+__device__ __forceinline__ void pixel_grad_constants(
+    float g_r, float g_g, float g_b, float g_t, float f_r, float f_g,
+    float f_b, float f_t, float* cfg, float* gtf) {
+  *cfg = g_r * f_r + g_g * f_g + g_b * f_b;
+  *gtf = g_t * f_t;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Backward walk of one tile's segment (see composite_bwd.cu for the
+// closed form): the same windows, flags and tile exit as fwd_walk.
+// Window c writes its (9, chunk) block of per-pair gradients at columns
+// grads + gbase + c * chunk (row stride gstride); pairs outside
+// [start, end) and windows after the exit are not written. sm holds
+// kUsedRows * chunk floats, red kUsedRows * chunk per warp. Every thread
+// of the block calls it; an empty segment writes nothing.
+__device__ __forceinline__ void bwd_walk(float* sm, float* red,
+                                         const float* __restrict__ feats,
+                                         long long stride, int start, int end,
+                                         int chunk, float ox, float oy,
+                                         float px, float py, float g_r,
+                                         float g_g, float g_b, float cfg,
+                                         float gtf, float* __restrict__ grads,
+                                         long long gstride, long long gbase) {
+  const int p = threadIdx.x;
+  const int npx = blockDim.x;
+  const int lane = p % kWarp;
+  const int warp = p / kWarp;
+  const int n_warps = npx / kWarp;
+  const int base = (start / chunk) * chunk;
+
+  float T = 1.0f, upg = 0.0f;
+  int c = 0;
+  for (int win = base; win < end; win += chunk, ++c) {
+    if (__syncthreads_count(T >= kTEps) == 0) break;
+    stage_window(sm, feats, stride, win, start, end, chunk);
+    __syncthreads();
+    const int lo = max(start - win, 0);
+    const int hi = min(end - win, chunk);
+    bool live = true;  // false after the pixel's walk stopped in this window
+    for (int k = lo; k < hi; ++k) {
+      float v[kUsedRows];
+#pragma unroll
+      for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
+      bool contrib = false;
+      PairAlpha a;
+      if (live && pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) {
+        float t_after;
+        if (pair_composites(T, a.alpha, &t_after)) {
+          contrib = true;
+          const float w = a.alpha * T;
+          const float gc = sm[5 * chunk + k] * g_r + sm[6 * chunk + k] * g_g +
+                           sm[7 * chunk + k] * g_b;
+          upg += w * gc;
+          const float inv1m = 1.0f / (1.0f - a.alpha);
+          const float dl_da = T * gc - inv1m * ((cfg - upg) + gtf);
+          const float dl_dpow = sm[8 * chunk + k] * dl_da * a.gv;
+          const float u = dl_dpow * a.dx;
+          const float vv = dl_dpow * a.dy;
+          v[0] = u;
+          v[1] = vv;
+          v[2] = u * a.dx;
+          v[3] = u * a.dy;
+          v[4] = vv * a.dy;
+          v[5] = g_r * w;
+          v[6] = g_g * w;
+          v[7] = g_b * w;
+          v[8] = a.gv * dl_da;
+          T = t_after;
+        } else {
+          live = false;
+        }
+      }
+      float* rk = red + warp * kUsedRows * chunk + k;
+      if (__any_sync(0xffffffffu, contrib)) {
+#pragma unroll
+        for (int r = 0; r < kUsedRows; ++r) v[r] = warp_sum(v[r]);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < kUsedRows; ++r) rk[r * chunk] = v[r];
+      }
+    }
+    __syncthreads();
+    float* gw = grads + gbase + static_cast<long long>(c) * chunk;
+    for (int i = p; i < kUsedRows * chunk; i += npx) {
+      const int row = i / chunk;
+      const int k = i - row * chunk;
+      if (k < lo || k >= hi) continue;
+      float s0 = 0.0f, s1 = 0.0f;
+      const int r0 = row < 2 ? 0 : row;
+      for (int w = 0; w < n_warps; ++w) {
+        s0 += red[(w * kUsedRows + r0) * chunk + k];
+        if (row < 2) s1 += red[(w * kUsedRows + 1) * chunk + k];
+      }
+      float val;
+      if (row == 0) {
+        val = -(sm[2 * chunk + k] * s0 + sm[3 * chunk + k] * s1);
+      } else if (row == 1) {
+        val = -(sm[4 * chunk + k] * s1 + sm[3 * chunk + k] * s0);
+      } else if (row == 2 || row == 4) {
+        val = -0.5f * s0;
+      } else if (row == 3) {
+        val = -s0;
+      } else {
+        val = s0;
+      }
+      gw[row * gstride + k] = val;
+    }
+  }
+}
+
+// Dynamic shared memory of the backward kernel: the staged window plus
+// one (kUsedRows, chunk) reduction block per warp.
+inline size_t bwd_smem_bytes(int chunk, int npx) {
+  return static_cast<size_t>(kUsedRows) * chunk * (1 + npx / kWarp) *
+         sizeof(float);
 }
 
 }  // namespace composite

@@ -1,15 +1,23 @@
-// Tile-based gaussian alpha compositing, forward, for Hopper (sm_90a).
+// Tile-based gaussian alpha compositing, forward, for Hopper (sm_90a),
+// in the rasterizer's two output layouts.
 //
-// Replaces the TPU kernel composite_fwd / _fwd_kernel of
-// sings_tpu/ops/rasterizer/pallas_kernels.py and computes what it
-// computes: for every 16x16 tile, walk the tile's depth-sorted segment
-// [offsets[t], offsets[t+1]) of the pair-feature array front to back
-// and composite colour and final transmittance per pixel.
+// Replaces the TPU kernels composite_fwd / _fwd_kernel ("tiled" layout)
+// and composite_fwd_panel / _fwd_kernel_panel ("panel" layout,
+// tpu.raster.layout: panel) of sings_tpu/ops/rasterizer/pallas_kernels.py
+// and computes what they compute: for every tile, walk the tile's
+// depth-sorted segment [offsets[t], offsets[t+1]) of the pair-feature
+// array front to back and composite colour and final transmittance per
+// pixel.
 //
 //   feats   (16, stride) f32, pair-minor rows: 0 mean_x | 1 mean_y |
 //           2..4 conic a, b, c | 5..7 rgb | 8 opacity (rows 9..15 unused)
-//   offsets (T + 1,) int32
-//   out     (T, 8, tile*tile) f32: rows 0..2 rgb, 3 T_final, 4..7 zero
+//   offsets (T + 1,) int32, T = n_tiles_y * n_tiles_x
+//   out     tiled: (T, 8, tile*tile) f32: rows 0..2 rgb, 3 T_final,
+//           4..7 zero;
+//           panel: (4, Hp, Wp) f32 image planes of rows 0..3,
+//           Hp = n_tiles_y * tile, Wp = row_tiles * tile with
+//           row_tiles = ceil(ntx / pw) * pw (pw = max(1, 128 / tile),
+//           the TPU's 128-px panels)
 //
 // Rules (composite_common.cuh): a pair contributes alpha * T only while
 // T * (1 - alpha) >= 1e-4. The TPU kernel evaluates that test per
@@ -25,18 +33,28 @@
 // Design: one CTA per tile, one thread per pixel (tile*tile threads).
 // Each window's 9 used feature rows are staged cooperatively in shared
 // memory; consecutive threads read consecutive pair addresses, so the
-// loads coalesce. Bound on the H100: no matmul remains, so the work is
-// ~25 fp32 operations and one exp per walked pair-pixel against
-// 67 TFLOP/s, or the bytes of the walked feats rows plus the output
-// against 3.35 TB/s, whichever is larger; at the avatar's pair density
-// the operations bound. The simple design keeps all 256 lanes busy on
-// that arithmetic; double-buffered staging (cp.async / TMA) and
-// image-layout output are later work.
+// loads coalesce. The thread that owns pixel (py, px) of tile (ty, tx)
+// writes its values at the layout's address (PixelLayout). On the TPU a
+// tile lives on the lane axis, so the panel kernel routes each
+// sub-tile's pixel rows into a 128-px output block through selection
+// matmuls and prefetches chunk 0 of every sub-tile; none of that
+// carries over. For the panel layout the grid covers the padded tile
+// row, so the sub-tiles past the image's last tile column walk an empty
+// segment and write colour 0 and T = 1, as the TPU kernel's empty
+// segments do; every element of the output is written.
 //
-// The alpha and termination arithmetic lives in composite_common.cuh,
-// shared with composite_bwd.cu. Built with -fmad=false so products and
-// sums round like the plain PyTorch version, which runs each operation
-// as its own kernel.
+// Bound on the H100: no matmul remains, so the work is ~25 fp32
+// operations and one exp per walked pair-pixel against 67 TFLOP/s, or
+// the bytes of the walked feats rows plus the output against 3.35 TB/s,
+// whichever is larger; at the avatar's pair density the operations
+// bound. The simple design keeps all 256 lanes busy on that arithmetic;
+// double-buffered staging (cp.async / TMA) is later work.
+//
+// The walk (alpha, termination, window staging, tile exit) lives in
+// composite_common.cuh, shared with composite_bwd.cu. Built with
+// -fmad=false so products and sums round like the plain PyTorch
+// version, which runs each operation as its own kernel; both layouts
+// run the same arithmetic, so they agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,67 +63,45 @@
 
 namespace {
 
-using composite::kTEps;
 using composite::kUsedRows;
 
 __global__ void composite_fwd_kernel(const float* __restrict__ feats,
                                      long long stride,
                                      const int* __restrict__ offsets,
                                      float* __restrict__ out, int tile,
-                                     int chunk, int n_tiles_x) {
+                                     int chunk, int n_tiles_x, int row_tiles,
+                                     composite::PixelLayout lay) {
   extern __shared__ float sm[];  // [kUsedRows][chunk]
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int npx = blockDim.x;
-  const float px = static_cast<float>(p % tile);
-  const float py = static_cast<float>(p / tile);
-  const float ox = static_cast<float>(t % n_tiles_x) * tile;
-  const float oy = static_cast<float>(t / n_tiles_x) * tile;
-  const int start = offsets[t];
-  const int end = offsets[t + 1];
-  const int base = (start / chunk) * chunk;
-
-  float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int win = base; win < end; win += chunk) {
-    // also the barrier that keeps the previous window's reads ahead of
-    // this window's stores
-    if (__syncthreads_count(T >= kTEps) == 0) break;
-    composite::stage_window(sm, feats, stride, win, start, end, chunk);
-    __syncthreads();
-    const int lo = max(start - win, 0);
-    const int hi = min(end - win, chunk);
-    for (int k = lo; k < hi; ++k) {
-      composite::PairAlpha a;
-      if (!composite::pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) continue;
-      float t_after;
-      // done for the rest of this window
-      if (!composite::pair_composites(T, a.alpha, &t_after)) break;
-      const float w = a.alpha * T;
-      acc_r += w * sm[5 * chunk + k];
-      acc_g += w * sm[6 * chunk + k];
-      acc_b += w * sm[7 * chunk + k];
-      T = t_after;
-    }
-  }
-  float* o = out + static_cast<long long>(t) * 8 * npx + p;
-  o[0] = acc_r;
-  o[npx] = acc_g;
-  o[2 * npx] = acc_b;
-  o[3 * npx] = T;
-  o[4 * npx] = 0.0f;
-  o[5 * npx] = 0.0f;
-  o[6 * npx] = 0.0f;
-  o[7 * npx] = 0.0f;
+  const composite::TilePixel tp = composite::tile_pixel(
+      offsets, nullptr, tile, n_tiles_x, row_tiles, lay);
+  float rgb[3], T;
+  composite::fwd_walk(sm, feats, stride, tp.start, tp.end, chunk,
+                      static_cast<float>(tp.tx) * tile,
+                      static_cast<float>(tp.ty) * tile,
+                      static_cast<float>(tp.px), static_cast<float>(tp.py),
+                      rgb, &T);
+  float* o = out + tp.at;
+  o[0] = rgb[0];
+  o[lay.row] = rgb[1];
+  o[2 * lay.row] = rgb[2];
+  o[3 * lay.row] = T;
+  for (int r = 4; r < lay.rows; ++r) o[r * lay.row] = 0.0f;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() of the launch.
+// Launch on `stream`; row_tiles 0 writes the tiled layout, row_tiles > 0
+// the panel planes over n_tiles_y * row_tiles tiles. Returns
+// cudaGetLastError() of the launch.
 extern "C" int composite_fwd_launch(const float* feats, long long stride,
                                     const int* offsets, float* out,
-                                    int n_tiles, int tile, int chunk,
-                                    int n_tiles_x, void* stream) {
-  if (n_tiles <= 0) return 0;
+                                    int n_tiles_y, int n_tiles_x, int tile,
+                                    int chunk, int row_tiles, void* stream) {
+  const composite::PixelLayout lay =
+      row_tiles > 0 ? composite::panel_layout(tile, n_tiles_y, row_tiles)
+                    : composite::tiled_layout(tile, n_tiles_x);
+  if (row_tiles <= 0) row_tiles = n_tiles_x;
+  if (n_tiles_y <= 0 || row_tiles <= 0) return 0;
   const size_t smem = static_cast<size_t>(kUsedRows) * chunk * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -113,8 +109,8 @@ extern "C" int composite_fwd_launch(const float* feats, long long stride,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  composite_fwd_kernel<<<n_tiles, tile * tile, smem,
+  composite_fwd_kernel<<<n_tiles_y * row_tiles, tile * tile, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      feats, stride, offsets, out, tile, chunk, n_tiles_x);
+      feats, stride, offsets, out, tile, chunk, n_tiles_x, row_tiles, lay);
   return static_cast<int>(cudaGetLastError());
 }

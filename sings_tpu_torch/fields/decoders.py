@@ -110,3 +110,12 @@ def appearance_decoder(p: dict, feats: torch.Tensor, cfg: DecoderConfig,
         logit = _linear(p["opacity"], x)
         opacity = torch.sigmoid(logit + opacity_offset)
     return {"shs": shs, "opacity": opacity}
+
+
+def appearance_opacity_logit(p: dict, feats: torch.Tensor,
+                             cfg: DecoderConfig) -> torch.Tensor:
+    """Raw opacity logit, for the opacity reset of density control
+    (offset = where(logit > 0, 0, -logit))."""
+    x = _gelu(_linear(p["net0"], feats))
+    x = _gelu(_linear(p["net1"], x))
+    return _linear(p["opacity"], x)

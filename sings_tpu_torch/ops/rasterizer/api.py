@@ -1,13 +1,19 @@
 """Differentiable rasterizer API (port of sings_tpu/ops/rasterizer/api.py).
 
 rasterize() = preprocess (autograd) -> bin_gaussians -> _gather_feats ->
-composite_fwd (CUDA kernel on the card, plain version on the CPU) ->
-tile-to-image relayout and crop -> background blend. The composite is
-an autograd.Function whose backward is the kernel composite_bwd: the
-cotangents are re-tiled to (T, 8, npx), the kernel writes per-pair
-gradients into the aligned buffer, and the 9 used rows are un-sorted
-back to gaussians with the main_slot / tail_slot / tail_of_gauss
-gathers of bin_gaussians.
+composite kernel (CUDA on the card, plain version on the CPU) -> crop ->
+background blend. The composite is an autograd.Function whose backward
+is the matching backward kernel: it writes per-pair gradients into the
+aligned buffer, and the 9 used rows are un-sorted back to gaussians
+with the main_slot / tail_slot / tail_of_gauss gathers of
+bin_gaussians.
+
+Two layouts, as in the JAX package (RasterConfig.layout):
+  * "tiled": composite_fwd writes (T, 8, npx) tile rows, relaid out to
+    the image; the cotangents are re-tiled for composite_bwd;
+  * "panel": composite_fwd(pw=panel_width) writes (4, Hp, Wp) image
+    planes that are only cropped; the cotangents are zero-padded to the
+    planes for composite_bwd(pw=panel_width).
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ import torch
 
 from ..graphics import Camera
 from .common import Gaussians2D, preprocess
-from .kernels import N_USED, NFEAT, composite_bwd, composite_fwd
+from .kernels import (
+    N_USED, NFEAT, composite_bwd, composite_fwd, panel_width,
+)
 from .reference import composite_dense
 from .tiles import TileBinning, bin_gaussians
 
@@ -37,6 +45,10 @@ class RasterConfig(NamedTuple):
     # settings here (same sums, f32 reassociation)
     scan_roll: bool = False
     layout: str = "tiled"
+
+    @property
+    def panel_width(self) -> int:
+        return panel_width(self.tile)
 
 
 def _pad_tiles(cfg: RasterConfig):
@@ -113,35 +125,52 @@ def unsort_pair_grads(pair_grads: torch.Tensor, binning: TileBinning,
     return pg
 
 
-class _CompositeTiled(torch.autograd.Function):
+class _Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, means2d, conics, colors, opacities, depths,
                 radii, mask):
-        if cfg.layout != "tiled":
+        if cfg.layout not in ("tiled", "panel"):
             raise NotImplementedError(
-                f"layout={cfg.layout!r}: only the tiled layout is ported")
+                f"layout={cfg.layout!r}: the layouts are 'tiled' and "
+                "'panel'")
         g2d = Gaussians2D(means2d=means2d, depths=depths, conics=conics,
                           colors=colors, opacities=opacities, radii=radii,
                           mask=mask)
         feats, binning = prepare_composite(g2d, cfg)
         ntx, nty = _pad_tiles(cfg)
-        out = composite_fwd(feats, binning.tile_offsets, tile=cfg.tile,
-                            chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty)
+        kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
+                  n_tiles_y=nty)
+        if cfg.layout == "panel":
+            out = composite_fwd(feats, binning.tile_offsets,
+                                pw=cfg.panel_width, **kw)
+            # (4, Hp, Wp) image planes: a crop, no relayout
+            color = out[:3, : cfg.height, : cfg.width]
+            t_final = out[3, : cfg.height, : cfg.width]
+        else:
+            out = composite_fwd(feats, binning.tile_offsets, **kw)
+            color, t_final = tiles_to_image(out, cfg)
         ctx.cfg = cfg
         ctx.binning = binning
         ctx.save_for_backward(feats, out)
-        return tiles_to_image(out, cfg)
+        return color, t_final
 
     @staticmethod
     def backward(ctx, g_color, g_t):
         cfg, binning = ctx.cfg, ctx.binning
         feats, out = ctx.saved_tensors
         ntx, nty = _pad_tiles(cfg)
-        gout = image_to_tiles(g_color, g_t, cfg)
-        pair_grads = composite_bwd(
-            feats, binning.tile_offsets, binning.grad_offsets, out, gout,
-            tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty,
-            grad_cap=binning.pair_slot_capacity)
+        kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
+                  n_tiles_y=nty, grad_cap=binning.pair_slot_capacity)
+        args = (feats, binning.tile_offsets, binning.grad_offsets, out)
+        if cfg.layout == "panel":
+            gout = g_color.new_zeros(out.shape)
+            gout[:3, : cfg.height, : cfg.width] = g_color
+            gout[3, : cfg.height, : cfg.width] = g_t
+            pair_grads = composite_bwd(*args, gout, pw=cfg.panel_width,
+                                       **kw)
+        else:
+            pair_grads = composite_bwd(*args, image_to_tiles(g_color, g_t,
+                                                             cfg), **kw)
         pg = unsort_pair_grads(pair_grads, binning,
                                binning.tail_of_gauss.shape[0])
         return (None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8], pg[:, 8], None,
@@ -160,8 +189,8 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
     """Differentiable gaussian splatting to an image.
 
     backend "pallas" (the JAX package's name, kept so callers pass the
-    same keywords): the tiled composite, the CUDA kernels for CUDA
-    tensors. "reference": the dense oracle. Returns {'render' (3, H, W)
+    same keywords): the tile composite in `layout` "tiled" or "panel",
+    the CUDA kernels for CUDA tensors. "reference": the dense oracle. Returns {'render' (3, H, W)
     unclamped, 'radii', 'visibility_filter', 'transmittance', 'means2d'}.
 
     screen_probe: optional (N, 2) zeros added to the screen means as
@@ -183,7 +212,7 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
             chunk=chunk, max_span=max_span, max_pairs=max_pairs,
             main_width=main_width, tail_capacity=tail_capacity, cull=cull,
             pair_cap=pair_cap, scan_roll=scan_roll, layout=layout)
-        color, t_final = _CompositeTiled.apply(
+        color, t_final = _Composite.apply(
             cfg, g2d.means2d, g2d.conics, g2d.colors, g2d.opacities,
             g2d.depths, g2d.radii, g2d.mask)
         image = color + t_final[None] * bg[:, None, None]

@@ -1,22 +1,30 @@
-"""Tile compositing, forward and backward: the CUDA kernels and their
-plain versions.
+"""Tile compositing, forward and backward, in two output layouts: the
+CUDA kernels and their plain versions.
 
-Counterparts of composite_fwd and composite_bwd in
-sings_tpu/ops/rasterizer/pallas_kernels.py (:873, body _fwd_kernel :133;
-:912, body _bwd_kernel :218). The kernels are csrc/composite_fwd.cu and
-csrc/composite_bwd.cu, built with nvcc for sm_90a and called through
-ctypes; composite_{fwd,bwd}_plain are the same functions in PyTorch,
-chunk by chunk over all tiles at once.
+Counterparts of composite_fwd, composite_bwd, composite_fwd_panel and
+composite_bwd_panel in sings_tpu/ops/rasterizer/pallas_kernels.py
+(:873, body _fwd_kernel :133; :912, body _bwd_kernel :218; :789, body
+_fwd_kernel_panel :474; :827, body _bwd_kernel_panel :582). The kernels
+are csrc/composite_fwd.cu and csrc/composite_bwd.cu, one per direction
+for both layouts, built with nvcc for sm_90a and called through ctypes;
+the *_plain functions are the same functions in PyTorch, chunk by chunk
+over all tiles at once. Every function takes pw=None for the tiled
+layout and pw = panel_width(tile) for the panel planes; the plain
+versions relay the tiled result out, so the two layouts share one walk
+(_walk_windows) as the kernels share csrc/composite_common.cuh.
 
-composite_fwd / composite_bwd dispatch on the tensors' device: CUDA
-tensors launch the kernel (or raise), CPU tensors run the plain
-version. Nothing else.
+Each public function dispatches on the tensors' device: CUDA tensors
+launch the kernel (or raise), CPU tensors run the plain version.
+Nothing else.
 
 Pair features: (NFEAT=16, PK + chunk) float32, pair-minor rows
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c |
   5 r | 6 g | 7 b | 8 opacity | 9..15 zero
 Forward output: (T, 8, tile*tile): rows 0-2 colour (no background), row
-3 final transmittance, rows 4-7 zero.
+3 final transmittance, rows 4-7 zero. Panel layout: (4, Hp, Wp) image
+planes of the same rows 0-3, Hp = n_tiles_y * tile, Wp = ceil(n_tiles_x
+/ pw) * pw * tile with pw = max(1, 128 // tile) (the TPU's 128-px
+panels); the sub-tiles past the last tile column hold colour 0, T = 1.
 Backward output: (9, grad_cap) per-pair gradients in JAX's row order
 (d mean_x, d mean_y, d conic a, b, c, d r, g, b, d opacity), the first 9
 of JAX's 16 rows, at grad_offsets[t] + (i - base_t) for sorted pair i of
@@ -39,8 +47,10 @@ T_EPS = 1e-4
 NFEAT = 16
 N_USED = 9
 
-# launches of each kernel through its wrapper (never the plain version)
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+# launches through each wrapper, by layout (the *_panel keys: pw given),
+# never through the plain version
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0,
+            "composite_fwd_panel": 0, "composite_bwd_panel": 0}
 
 
 def reset_launches() -> None:
@@ -51,8 +61,29 @@ def reset_launches() -> None:
 def _tri(chunk: int, device, strict: bool) -> torch.Tensor:
     """(chunk, chunk) lower-triangular ones, strict or inclusive: the
     TPU kernels' _tri_strict / _tri_incl cumsum matrices."""
-    return torch.tril(torch.ones((chunk, chunk), device=device),
+    return torch.tril(torch.ones((chunk, chunk), device=device,
+                                 dtype=torch.float64),
                       diagonal=-1 if strict else 0)
+
+
+# The plain versions compute the transcendental functions and the
+# windows' sums in float64 and round once to float32. On the CPU,
+# PyTorch's float32 exp/log1p (vectorised or scalar, by where the
+# threads split the work) and its summation order change with the
+# number of threads a process gets, and a 1-ulp change in T flips a
+# termination test near 1e-4; rounded from float64 the results are the
+# same in every process.
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.double()).float()
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    return torch.log1p(x.double()).float()
+
+
+def _tri_sum(tri: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """tri @ x: the windows' cumulative sums."""
+    return torch.matmul(tri, x.double()).float()
 
 
 class _Window(NamedTuple):
@@ -84,7 +115,8 @@ def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
     Window c of every tile at once, with the TPU kernels' arithmetic:
     alpha from tile-local coordinates (zero where the pair is skipped or
     outside the segment), the exclusive cumsum of log1p(-alpha) as a
-    strictly-lower-triangular matmul, the T * (1 - alpha) >= 1e-4 flag
+    strictly-lower-triangular matmul (_tri_sum), the T * (1 - alpha) >=
+    1e-4 flag
     and the carried transmittance. Tiles whose every pixel has T < 1e-4
     stop there, as the kernels' per-tile exit does.
     """
@@ -124,25 +156,78 @@ def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
         dx = (f[0] - ox) - px_x
         dy = (f[1] - oy) - px_y
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        gv = torch.exp(power)
+        gv = _exp(power)
         alpha = torch.clamp_max(op * gv, 0.99)
         alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN) | ~pair_ok,
                             torch.zeros_like(alpha), alpha)
-        la = torch.log1p(-alpha)
-        t_bef = t_carry * torch.exp(torch.matmul(ltri, la))
+        la = _log1p(-alpha)
+        t_bef = t_carry * _exp(_tri_sum(ltri, la))
         flag = (t_bef * (1.0 - alpha)) >= T_EPS
         la_eff = torch.where(flag, la, torch.zeros_like(la))
-        t_after = t_carry * torch.exp(torch.sum(la_eff, dim=1, keepdim=True))
+        t_after = t_carry * _exp(torch.sum(la_eff.double(), dim=1,
+                                           keepdim=True).float())
         yield _Window(c, f, dx, dy, gv, alpha, t_bef, flag, walking,
                       n_walked, t_after)
         t_carry = t_after
 
 
+# ---------------------------------------------------------------------------
+# the panel layout: the same compositing in (4, Hp, Wp) image planes
+
+
+def panel_width(tile: int) -> int:
+    """Sub-tiles per 128-px panel (RasterConfig.panel_width)."""
+    return max(1, 128 // tile)
+
+
+def panel_shape(*, tile: int, n_tiles_x: int, n_tiles_y: int,
+                pw: int) -> tuple[int, int]:
+    """(Hp, Wp) of the panel planes."""
+    return n_tiles_y * tile, -(-n_tiles_x // pw) * pw * tile
+
+
+def tiles_to_planes(out: torch.Tensor, *, tile: int, n_tiles_x: int,
+                    n_tiles_y: int, pw: int) -> torch.Tensor:
+    """(T, 8, npx) tile rows -> (4, Hp, Wp) planes of rows 0-3; the
+    padding sub-tiles get colour 0 and T = 1."""
+    hp, wp = panel_shape(tile=tile, n_tiles_x=n_tiles_x,
+                         n_tiles_y=n_tiles_y, pw=pw)
+    planes = out.new_zeros((4, hp, wp))
+    planes[3] = 1.0
+    img = out[:, :4].reshape(n_tiles_y, n_tiles_x, 4, tile, tile)
+    planes[:, :, : n_tiles_x * tile] = img.permute(2, 0, 3, 1, 4).reshape(
+        4, hp, n_tiles_x * tile)
+    return planes
+
+
+def planes_to_tiles(planes: torch.Tensor, *, tile: int, n_tiles_x: int,
+                    n_tiles_y: int) -> torch.Tensor:
+    """(4, Hp, Wp) planes -> (T, 8, npx) tile rows (rows 4-7 zero); the
+    padding sub-tiles are dropped."""
+    x = planes[:, :, : n_tiles_x * tile].reshape(4, n_tiles_y, tile,
+                                                 n_tiles_x, tile)
+    tiles = x.permute(1, 3, 0, 2, 4).reshape(n_tiles_y * n_tiles_x, 4,
+                                             tile * tile)
+    return torch.cat([tiles, torch.zeros_like(tiles)], dim=1)
+
+
+def out_shape(*, tile: int, n_tiles_x: int, n_tiles_y: int,
+              pw: int | None = None) -> tuple[int, ...]:
+    """The forward output's shape: (T, 8, npx) tile rows, or with pw the
+    (4, Hp, Wp) panel planes."""
+    if pw is None:
+        return n_tiles_x * n_tiles_y, 8, tile * tile
+    return (4,) + panel_shape(tile=tile, n_tiles_x=n_tiles_x,
+                              n_tiles_y=n_tiles_y, pw=pw)
+
+
 def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
                         tile: int, chunk: int, n_tiles_x: int,
-                        n_tiles_y: int, return_walked: bool = False):
+                        n_tiles_y: int, pw: int | None = None,
+                        return_walked: bool = False):
     """Plain PyTorch composite, vectorised over tiles: the colour sums
-    of _walk_windows' compositing pairs and the last transmittance.
+    of _walk_windows' compositing pairs and the last transmittance, in
+    tile rows or, with pw, relaid out to the panel planes.
 
     return_walked: also return the number of pairs walked before each
     tile's exit, summed (the data-dependent work of this input).
@@ -165,6 +250,9 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
         t_final = win.t_after
     out = torch.cat([acc, t_final,
                      torch.zeros((n_tiles, 4, npx), device=dev)], dim=1)
+    if pw is not None:
+        out = tiles_to_planes(out, tile=tile, n_tiles_x=n_tiles_x,
+                              n_tiles_y=n_tiles_y, pw=pw)
     if return_walked:
         return out, walked
     return out
@@ -172,7 +260,7 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib(name: str = "composite_fwd", argtypes=_ARGTYPES):
@@ -202,33 +290,42 @@ def _check(feats, offsets, tile, chunk, n_tiles):
         raise ValueError(f"chunk {chunk} must be positive")
 
 
+def _row_tiles(shape, tile: int, pw: int | None) -> int:
+    """The launchers' layout argument: 0 for tile rows, else the tiles
+    of a padded tile row of the panel planes."""
+    return 0 if pw is None else shape[2] // tile
+
+
 def composite_fwd_cuda(feats: torch.Tensor, offsets: torch.Tensor, *,
                        tile: int, chunk: int, n_tiles_x: int,
-                       n_tiles_y: int) -> torch.Tensor:
-    """Launch csrc/composite_fwd.cu on the current stream."""
-    n_tiles = n_tiles_x * n_tiles_y
+                       n_tiles_y: int, pw: int | None = None) -> torch.Tensor:
+    """Launch csrc/composite_fwd.cu on the current stream: tile rows, or
+    with pw the panel planes (counted as composite_fwd_panel)."""
+    name = "composite_fwd" if pw is None else "composite_fwd_panel"
     if not (feats.is_cuda and offsets.is_cuda
             and feats.device == offsets.device):
-        raise ValueError("composite_fwd_cuda needs both tensors on one "
-                         "CUDA device")
-    _check(feats, offsets, tile, chunk, n_tiles)
+        raise ValueError(f"{name} needs both tensors on one CUDA device")
+    _check(feats, offsets, tile, chunk, n_tiles_x * n_tiles_y)
+    shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+                      pw=pw)
     fn = _lib()
-    out = torch.empty((n_tiles, 8, tile * tile), dtype=torch.float32,
-                      device=feats.device)
+    out = torch.empty(shape, dtype=torch.float32, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
-             out.data_ptr(), n_tiles, tile, chunk, n_tiles_x, stream)
+             out.data_ptr(), n_tiles_y, n_tiles_x, tile, chunk,
+             _row_tiles(shape, tile, pw), stream)
     if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
-    LAUNCHES["composite_fwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 
 def composite_fwd(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
-                  chunk: int, n_tiles_x: int, n_tiles_y: int) -> torch.Tensor:
+                  chunk: int, n_tiles_x: int, n_tiles_y: int,
+                  pw: int | None = None) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
-              n_tiles_y=n_tiles_y)
+              n_tiles_y=n_tiles_y, pw=pw)
     if feats.is_cuda:
         return composite_fwd_cuda(feats, offsets, **kw)
     if feats.device.type == "cpu":
@@ -240,18 +337,23 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
                         grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
                         gout: torch.Tensor, *, tile: int, chunk: int,
                         n_tiles_x: int, n_tiles_y: int, grad_cap: int,
-                        return_counts: bool = False):
+                        pw: int | None = None, return_counts: bool = False):
     """Plain PyTorch backward, vectorised over tiles.
 
     The TPU kernel's arithmetic on _walk_windows' windows: the inclusive
     cumsum of w * gc as a triangular matmul, the closed form dC/dalpha
     and the pixel reductions. Writes each walking tile's window into a
-    zeroed (9, grad_cap) buffer at grad_offsets[t] + c * chunk.
+    zeroed (9, grad_cap) buffer at grad_offsets[t] + c * chunk. With pw,
+    fwd_out and gout are panel planes, relaid out to tile rows first.
 
     return_counts: also return the pairs walked before each tile's exit
     and the pair-pixels that composite, each summed (the data-dependent
     work of this input).
     """
+    if pw is not None:
+        lay = dict(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y)
+        fwd_out = planes_to_tiles(fwd_out, **lay)
+        gout = planes_to_tiles(gout, **lay)
     dev = feats.device
     n_tiles = n_tiles_x * n_tiles_y
     npx = tile * tile
@@ -271,7 +373,7 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
         aeff = torch.where(win.flag, win.alpha, torch.zeros_like(win.alpha))
         w = aeff * t_bef
         gc = f[5] * g_rgb[:, 0:1] + f[6] * g_rgb[:, 1:2] + f[7] * g_rgb[:, 2:3]
-        upg = cpg + torch.matmul(linc, w * gc)
+        upg = cpg + _tri_sum(linc, w * gc)
         dl_da = t_bef * gc - ((cfg - upg) + gtf) / (1.0 - aeff)
         dl_da = torch.where(aeff > 0.0, dl_da, torch.zeros_like(dl_da))
         # the derivative as if alpha = op * G, clamp or not (TPU quirk)
@@ -301,33 +403,35 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
 
 
 def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
                        grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
                        gout: torch.Tensor, *, tile: int, chunk: int,
-                       n_tiles_x: int, n_tiles_y: int,
-                       grad_cap: int) -> torch.Tensor:
+                       n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                       pw: int | None = None) -> torch.Tensor:
     """Launch csrc/composite_bwd.cu on the current stream into a zeroed
-    (9, grad_cap) buffer."""
+    (9, grad_cap) buffer; fwd_out and gout in tile rows, or with pw in
+    panel planes (counted as composite_bwd_panel)."""
+    name = "composite_bwd" if pw is None else "composite_bwd_panel"
     n_tiles = n_tiles_x * n_tiles_y
-    npx = tile * tile
     tensors = (feats, offsets, grad_offsets, fwd_out, gout)
     if not all(x.is_cuda and x.device == feats.device for x in tensors):
-        raise ValueError("composite_bwd_cuda needs every tensor on one "
-                         "CUDA device")
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
     _check(feats, offsets, tile, chunk, n_tiles)
     if grad_offsets.dtype != torch.int32 or grad_offsets.shape != (
             n_tiles + 1,) or not grad_offsets.is_contiguous():
         raise ValueError("grad_offsets must be contiguous int32 "
                          f"({n_tiles + 1},)")
-    for name, x in (("fwd_out", fwd_out), ("gout", gout)):
-        if (x.dtype != torch.float32 or x.shape != (n_tiles, 8, npx)
+    shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+                      pw=pw)
+    for arg, x in (("fwd_out", fwd_out), ("gout", gout)):
+        if (x.dtype != torch.float32 or x.shape != shape
                 or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 "
-                             f"({n_tiles}, 8, {npx}), got {x.dtype} "
-                             f"{tuple(x.shape)}")
+            raise ValueError(f"{arg} must be contiguous f32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
     if grad_cap < chunk:
         raise ValueError(f"grad_cap {grad_cap} < chunk {chunk}")
     fn = _lib("composite_bwd", _BWD_ARGTYPES)
@@ -336,22 +440,22 @@ def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
              grad_offsets.data_ptr(), fwd_out.data_ptr(), gout.data_ptr(),
-             grads.data_ptr(), grad_cap, n_tiles, tile, chunk, n_tiles_x,
-             stream)
+             grads.data_ptr(), grad_cap, n_tiles_y, n_tiles_x, tile, chunk,
+             _row_tiles(shape, tile, pw), stream)
     if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
-    LAUNCHES["composite_bwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return grads
 
 
 def composite_bwd(feats: torch.Tensor, offsets: torch.Tensor,
                   grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
                   gout: torch.Tensor, *, tile: int, chunk: int,
-                  n_tiles_x: int, n_tiles_y: int,
-                  grad_cap: int) -> torch.Tensor:
+                  n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                  pw: int | None = None) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
-              n_tiles_y=n_tiles_y, grad_cap=grad_cap)
+              n_tiles_y=n_tiles_y, grad_cap=grad_cap, pw=pw)
     args = (feats, offsets, grad_offsets, fwd_out, gout)
     if feats.is_cuda:
         return composite_bwd_cuda(*args, **kw)

@@ -6,10 +6,13 @@ jax.tree_util flatten order: NamedTuple fields in declaration order,
 dict keys sorted, lists by index, None contributing no leaf. The port's
 AvatarParams / AvatarBuffers mirror those trees, so a JAX checkpoint
 loads leaf for leaf; every shape is checked against the AvatarConfig.
-The optimizer section (opt__*) is not read back: resuming a training
-run is a later slice. params/buffers/adam_state/region_laplacian
-_from_numpy turn the JAX package's in-memory state into the port's, so
-tests can start both packages from one state.
+The optimizer section (opt__*) holds optax's chain state, whose leaves
+are the Adam count, mu, nu (each a tree like the params) and the
+learning-rate schedule's count; the port's AdamState writes and reads
+that layout, so a training run resumes across the two packages.
+params/buffers/adam_state/region_laplacian_from_numpy turn the JAX
+package's in-memory state into the port's, so tests can start both
+packages from one state.
 """
 from __future__ import annotations
 
@@ -126,18 +129,34 @@ def _load_section(data, prefix: str, spec, device):
     return _rebuild(spec, leaves)
 
 
+def opt_spec(cfg: AvatarConfig) -> list:
+    """The opt section's leaves: optax's (ScaleByAdamState(count, mu,
+    nu), ScaleByScheduleState(count)), a clip's EmptyState holding none."""
+    p = param_spec(cfg)
+    return [((), "i"), p, p, ((), "i")]
+
+
 def load_checkpoint(path: str, cfg: AvatarConfig, *, num_joints: int,
-                    device="cpu") -> dict:
-    """Read a checkpoint written by either package's save_checkpoint."""
+                    device="cpu", with_opt: bool = False) -> dict:
+    """Read a checkpoint written by either package's save_checkpoint.
+    with_opt: also read the Adam state ("opt_state", an AdamState);
+    a checkpoint without one raises CheckpointShapeMismatch."""
     data = np.load(path, allow_pickle=False)
     params = _load_section(data, "params", param_spec(cfg), device)
     buffers = _load_section(data, "buffers", buffer_spec(cfg, num_joints),
                             device)
+    opt_state = None
+    if with_opt:
+        from .optim import AdamState
+
+        count, mu, nu, _ = _load_section(data, "opt", opt_spec(cfg), device)
+        opt_state = AdamState(count=count, mu=mu, nu=nu)
     extra = {k[len("extra__"):]: data[k] for k in data.files
              if k.startswith("extra__")}
     return {
         "params": params,
         "buffers": buffers,
+        "opt_state": opt_state,
         "step": int(data["step"]),
         "active_sh_degree": int(data["active_sh_degree"]),
         "extra": extra,
@@ -154,11 +173,17 @@ def save_checkpoint(path: str, *, params, buffers, step: int,
                     active_sh_degree: int, opt_state=None,
                     extra: dict | None = None):
     """Write the same keys as the JAX package; no opt section unless an
-    optimizer state (any pytree of arrays) is given."""
+    optimizer state is given. An AdamState is written in optax's layout
+    (its count twice: Adam's and the schedule's, equal in both
+    packages); any other pytree of arrays as it is."""
+    from .optim import AdamState
+
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     out: dict = {"step": np.asarray(step),
                  "active_sh_degree": np.asarray(active_sh_degree)}
     sections = [("params", params), ("buffers", buffers)]
+    if isinstance(opt_state, AdamState):
+        opt_state = [opt_state, opt_state.count]
     if opt_state is not None:
         sections.append(("opt", opt_state))
     for prefix, tree in sections:

@@ -147,3 +147,24 @@ def make_optimizer(cfg: LRConfig, flags: TrainFlags,
                    grad_clip_norm: float = 0.0) -> Optimizer:
     return Optimizer(lr=cfg, flags=flags, grad_clip_norm=grad_clip_norm)
 
+
+
+def zero_moments_for_slots(opt_state: AdamState,
+                           slot_mask: torch.Tensor) -> AdamState:
+    """Zero the Adam moments of per-gaussian slots after a topology
+    change (port of sings_tpu/train/optim.py::zero_moments_for_slots).
+
+    slot_mask: (C,) float, 1 where the moments reset (new or removed
+    slots). Only leaves whose leading dimension is C (the per-gaussian
+    parameters: xyz) change; count and every other leaf are kept.
+    """
+    c = slot_mask.shape[0]
+    keep = 1.0 - slot_mask
+
+    def fix(x):
+        if x.ndim >= 1 and x.shape[0] == c:
+            return x * keep.reshape((c,) + (1,) * (x.ndim - 1))
+        return x
+
+    return AdamState(count=opt_state.count, mu=tree_map(fix, opt_state.mu),
+                     nu=tree_map(fix, opt_state.nu))

@@ -1,5 +1,4 @@
-"""Trainer (port of sings_tpu/train/trainer.py): animation mode and the
-train-mode constructor.
+"""Trainer (port of sings_tpu/train/trainer.py): animation and training.
 
 Trainer(cfg, mode="anim") builds what the JAX constructor builds for an
 animation run: the kit (or an in-memory one), the animation dataset,
@@ -10,20 +9,28 @@ rasterize each frame, quantise to uint8 on the device.
 
 Trainer(cfg, mode="train") also builds the optimizer and its state, the
 loss weights and StepConfig from the YAML keys, the region laplacian,
-the decoder pre-fit (init_attrs) and self.train_step /
-self.train_scan, the step and K-step chunk that bench.py's recipe
-benchmark drives. Trainer.train() (the loop with logging, validation,
-checkpoints, SH annealing and density control) is a later slice and
-raises, as does resuming a training run from a checkpoint.
+the random-feature LPIPS metric, self.train_step / self.train_scan,
+and resumes from the latest checkpoint (params, buffers, Adam state,
+step) or pre-fits the decoders. train() is the JAX package's loop:
+K-step chunks between host events (_is_event), checkpoints, validation
+(with test-time pose refinement and the gauge-aligned metric),
+visualisation, SH annealing and hybrid density control (host numpy
+topology surgery, Adam moments zeroed at the changed slots, opacity
+reset, laplacian rebuild), then a final checkpoint and validation.
 
 Deviations from the JAX signatures:
   * Trainer(..., kit=TrainingKit) takes a kit held in memory, so a run
     needs no image files (and no image library) on disk;
-  * animate_chunk(..., writer=callable) takes the frame sink; the
-    default writes JPEGs with PIL, imported only then, which lets a
-    machine without PIL or cv2 render;
+  * Trainer(..., image_writer=callable) takes the sink of every image
+    the trainer saves (validation pairs, canonical turntables, the
+    default animation frames): image_writer(path, uint8 (H, W, 3)); the
+    default writes the file with PIL, imported only then, which lets a
+    machine without PIL or cv2 train and render;
+  * animate_chunk(..., writer=callable) takes the frame sink;
   * train_step / train_scan take a torch.Generator (self.step_generator)
-    where JAX takes PRNG keys, and optionally the draws themselves.
+    where JAX takes PRNG keys, and optionally the draws themselves; the
+    frame order is shuffled by a random.Random seeded from cfg.seed
+    (the JAX loop uses the global `random`, seeded the same way).
 """
 from __future__ import annotations
 
@@ -42,21 +49,37 @@ from ..config.defaults import (
 from ..data.anim import load_anim_dataset
 from ..data.kit import TrainingKit, load_kit
 from ..device import resolve_device
-from ..fields.decoders import DecoderConfig
-from ..fields.triplane import TriplaneConfig
+from ..data.cameras import get_rotating_cameras, get_smpl_static_params
+from ..export.ply import save_ellipsoid_mesh, save_ply, save_splat
+from ..fields.decoders import DecoderConfig, appearance_opacity_logit
+from ..fields.triplane import TriplaneConfig, triplane_features
 from ..kinematics.body_model import load_template
 from ..kinematics.template import DeviceTemplate, canonical_pose_cache
+from ..losses.lpips import get_lpips, lpips_distance
 from ..losses.photometric import PhotometricWeights
 from ..losses.regularizers import (
     L2NormConfig, build_region_laplacian, edge_stat,
 )
 from ..model.avatar import (
-    AvatarConfig, avatar_forward_chunk, fit_initial_attrs, get_canon_xyz,
-    get_gs_attrs, init_avatar, initial_attr_targets,
+    AvatarConfig, avatar_forward, avatar_forward_chunk, fit_initial_attrs,
+    get_canon_xyz, get_gs_attrs, init_avatar, initial_attr_targets,
 )
+from ..model.density import densify_and_subdivide, prune_and_simplify
 from ..ops.rasterizer.api import rasterize
-from .checkpoint import latest_checkpoint, load_checkpoint
-from .optim import LRConfig, TrainFlags, make_optimizer
+from ..ops.rotations import (
+    axis_angle_to_matrix, matrix_to_axis_angle, rotation_6d_to_axis_angle,
+    rotation_6d_to_matrix,
+)
+from ..ops.ssim import psnr, ssim
+from .checkpoint import (
+    CheckpointShapeMismatch, latest_checkpoint, load_checkpoint,
+    save_checkpoint,
+)
+from .logging_util import install_run_log
+from .optim import (
+    LRConfig, TrainFlags, adam_directions, adam_init, make_optimizer,
+    zero_moments_for_slots,
+)
 from .step import (
     LossWeights, StepConfig, make_train_scan, make_train_step, sh_degree_mask,
 )
@@ -97,36 +120,54 @@ def load_anim_cfg(path: str) -> dict:
         return yaml.safe_load(fh)
 
 
-def _jpeg_writer(out_dir: str, pool: cf.ThreadPoolExecutor):
+def save_image_file(path: str, image: np.ndarray) -> None:
+    """Default image sink: (H, W, 3) uint8 to a file, PIL imported here."""
+    from PIL import Image
+
+    Image.fromarray(image).save(path)
+
+
+def _jpeg_writer(out_dir: str, pool: cf.ThreadPoolExecutor, save):
     def write(frames: np.ndarray, start: int):
-        from PIL import Image
-
-        def encode(j):
-            Image.fromarray(frames[j]).save(
-                os.path.join(out_dir, f"{start + j:05d}.jpg"))
-
-        return [pool.submit(encode, j) for j in range(frames.shape[0])]
+        return [pool.submit(save, os.path.join(out_dir, f"{start + j:05d}.jpg"),
+                            frames[j]) for j in range(frames.shape[0])]
     return write
+
+
+def _to_uint8(img: torch.Tensor) -> np.ndarray:
+    """(3, H, W) render -> (H, W, 3) uint8 as the JAX package saves it:
+    clip, scale by 255, truncate."""
+    return (img.detach().permute(1, 2, 0).clamp(0, 1).cpu().numpy()
+            * 255).astype(np.uint8)
+
+
+def _masked_psnr(img, gt, m) -> float:
+    mse = float((((img - gt) * m) ** 2).sum() / torch.clamp_min(m.sum() * 3,
+                                                              1.0))
+    return float(20 * np.log10(1.0 / max(np.sqrt(mse), 1e-6)))
 
 
 class Trainer:
     def __init__(self, cfg, mode: str = "anim", device=None,
-                 kit: TrainingKit | None = None):
+                 kit: TrainingKit | None = None, image_writer=None):
         if mode not in ("anim", "train"):
             raise NotImplementedError(
                 f"mode={mode!r}: the port has 'anim' and 'train'")
         self.cfg = cfg
+        self.mode = mode
         self.device = resolve_device(device)
         random.seed(cfg.seed)
         np.random.seed(cfg.seed)
         self.generator = torch.Generator().manual_seed(int(cfg.seed))
+        self.save_image = image_writer or save_image_file
 
         self.logdir = cfg.logdir or os.path.join(
             cfg.output_path, cfg.exp_name, cfg.dataset.name)
         self.logdir_ckpt = cfg.logdir_ckpt or os.path.join(self.logdir,
                                                            "ckpt")
-        for sub in ("", "ckpt", "anim"):
+        for sub in ("", "ckpt", "val", "train", "anim", "meshes", "canon"):
             os.makedirs(os.path.join(self.logdir, sub), exist_ok=True)
+        install_run_log(self.logdir, mode)
         self.bg_color = (torch.ones(3, device=self.device)
                          if cfg.bg_color == "white"
                          else torch.zeros(3, device=self.device))
@@ -235,15 +276,17 @@ class Trainer:
         if mode == "train":
             self._init_training(hcfg, capacity)
 
+        # auto-resume; a checkpoint of another shape is ignored in a
+        # training run and refused otherwise, as in the JAX package
         ckpt = hcfg.ckpt or latest_checkpoint(self.logdir_ckpt)
+        loaded = False
         if ckpt and os.path.exists(str(ckpt)):
-            if mode == "train" and not cfg.eval:
-                raise NotImplementedError(
-                    f"found checkpoint {ckpt}: resuming a training run is "
-                    "a later slice of the port (ROADMAP queue A 2); use a "
-                    "fresh output_path")
-            self.load_ckpt(str(ckpt))
-        elif mode == "train" and not cfg.eval:
+            loaded = self.load_ckpt(str(ckpt))
+            if not loaded and (mode != "train" or cfg.eval):
+                raise RuntimeError(
+                    f"checkpoint {ckpt} is incompatible with the current "
+                    "config and this is an eval/animate run")
+        if not loaded and mode == "train" and not cfg.eval:
             self._init_attrs()
 
     # ------------------------------------------------------------------
@@ -270,8 +313,9 @@ class Trainer:
 
         loss_cfg = hcfg.loss
         # LPIPS: pretrained weights keep lpips_w, the random-feature
-        # fallback scales it by random_lpips_factor; either way a
-        # positive weight needs the LPIPS network, not ported yet
+        # network scales it by random_lpips_factor; a positive weight
+        # needs the loss's backward through the network, which waits for
+        # pretrained weights in the repository (the metric is ported)
         lpips_path = cfg.tpu.get("lpips_weights")
         pretrained = bool(lpips_path) and os.path.exists(str(lpips_path))
         lpips_w = float(loss_cfg.lpips_w)
@@ -279,9 +323,9 @@ class Trainer:
             lpips_w *= float(cfg.tpu.get("random_lpips_factor", 0.05))
         if lpips_w > 0:
             raise NotImplementedError(
-                f"LPIPS weight {lpips_w} > 0: losses/lpips.py is not "
-                "ported; it waits for pretrained VGG-LPIPS weights in the "
-                f"repository (tpu.lpips_weights={lpips_path!r}). Set "
+                f"LPIPS weight {lpips_w} > 0: the LPIPS training loss is "
+                "not ported; it waits for pretrained VGG-LPIPS weights in "
+                f"the repository (tpu.lpips_weights={lpips_path!r}). Set "
                 "human.loss.lpips_w=0 or tpu.random_lpips_factor=0")
         weights = LossWeights(
             photometric=PhotometricWeights(
@@ -338,6 +382,20 @@ class Trainer:
         self._lap_pad = None
         self._rebuild_laplacians()
 
+        # the validation metric's network (random features unless
+        # pretrained weights are given)
+        self.lpips_params = get_lpips(cfg.tpu.get("lpips_weights"),
+                                      seed=int(cfg.seed), device=dev)
+        self.density_cfg = dict(dc)
+        self.order_rng = random.Random(int(cfg.seed))
+        # merge into an existing results json instead of overwriting it
+        self.eval_metrics = {}
+        run_mode = "eval" if cfg.get("eval") else "train"
+        res_path = os.path.join(self.logdir, f"results_{run_mode}.json")
+        if os.path.exists(res_path):
+            with open(res_path) as fh:
+                self.eval_metrics = json.load(fh)
+
     def _init_attrs(self) -> None:
         """Pre-fit the decoders (cfg.train.init_steps Adam steps), then
         start the optimizer state afresh."""
@@ -370,11 +428,511 @@ class Trainer:
         self._lap_pad = max(self._lap_pad or 8,
                             self.region_lap.neighbors.shape[1])
 
+    # ------------------------------------------------------------------
     def train(self):
-        raise NotImplementedError(
-            "Trainer.train() (logging, validation, checkpoints, SH "
-            "annealing, density control) is a later slice of the port "
-            "(ROADMAP queue A 2); drive self.train_scan directly")
+        """The training loop: chunks of up to inner_steps steps between
+        host events, then the final checkpoint and validation."""
+        cfg = self.cfg
+        num_steps = int(cfg.train.num_steps)
+        order = list(range(len(self.kit.train_split)))
+        self.order_rng.shuffle(order)
+        cursor = 0
+        t0 = time.time()
+        log_every = 50
+        steps_since_log = 0
+        last_loss, last_terms = None, {}
+        while self.step < num_steps:
+            t_iter = self.step
+            # how many consecutive steps can run in one chunk
+            k = 1
+            if self.inner_steps > 1 and not self._is_event(t_iter):
+                while (k < self.inner_steps and t_iter + k < num_steps
+                       and not self._is_event(t_iter + k)):
+                    k += 1
+            frames = []
+            for _ in range(k):
+                if cursor >= len(order):
+                    self.order_rng.shuffle(order)
+                    cursor = 0
+                frames.append(int(self.kit.train_split[order[cursor]]))
+                cursor += 1
+
+            laps = (self.region_lap, self.region_lap, self.lap_pos_w,
+                    self.lap_color_w)
+            if k == 1:
+                frame = frames[0]
+                batch = {"rgb": self.images[frame], "mask": self.masks[frame],
+                         "idx": frame,
+                         "smpl_scale": torch.ones(1, device=self.device)}
+                (self.params, self.buffers, self.opt_state, metrics,
+                 render) = self.train_step(
+                    self.params, self.buffers, self.opt_state, self.cache,
+                    batch, self.step_generator, t_iter,
+                    self.active_sh_degree, *laps)
+                last_loss = metrics["loss"]
+                last_terms = {n: v for n, v in metrics.items()
+                              if n not in ("loss", "skipped")}
+                if float(metrics["skipped"]) > 0:
+                    print(f"[{t_iter}] WARNING: non-finite gradients, "
+                          "update skipped")
+            else:
+                batches = {"rgb": self.images[frames],
+                           "mask": self.masks[frames], "idx": frames,
+                           "smpl_scale": torch.ones((k, 1),
+                                                    device=self.device)}
+                (self.params, self.buffers, self.opt_state, losses, skipped,
+                 term_metrics) = self.train_scan(
+                    self.params, self.buffers, self.opt_state, self.cache,
+                    batches, self.step_generator, t_iter,
+                    self.active_sh_degree, *laps)
+                last_loss = losses[-1]
+                last_terms = {n: v[-1] for n, v in term_metrics.items()
+                              if n not in ("loss", "skipped")}
+                n_skip = float(skipped.sum())
+                if n_skip > 0:
+                    print(f"[{t_iter}] WARNING: {int(n_skip)}/{k} steps had "
+                          "non-finite gradients, updates skipped")
+                render = None
+
+            steps_since_log += k
+            if steps_since_log >= log_every:
+                n_alive = int(self.buffers.alive.sum())
+                dt = time.time() - t0
+                terms = "".join(
+                    f" {n.replace('photo_', '')}={float(v):.3f}"
+                    for n, v in sorted(last_terms.items()))
+                print(f"[{t_iter:6d}] loss={float(last_loss):.4f} "
+                      f"n_gs={n_alive / 1000:.1f}K "
+                      f"({steps_since_log / max(dt, 1e-9):.2f} it/s)"
+                      f"{terms}", flush=True)
+                t0 = time.time()
+                steps_since_log = 0
+
+            last_t = t_iter + k - 1
+            self._periodic_check(last_t, render)
+            self._adjust_density(last_t)
+            self.step += k
+
+        self.save_ckpt("final")
+        return self.validate("final")
+
+    def _is_event(self, t: int) -> bool:
+        """True when step t triggers host-side work after it runs
+        (periodic checks, SH bump, density control): chunks break there."""
+        cfg = self.cfg
+        if t > 0 and (
+            t % cfg.train.save_ckpt_interval == 0
+            or t % cfg.train.val_interval == 0
+            or (self.anim_dataset is not None
+                and t % cfg.train.anim_interval == 0)
+            or t % cfg.train.viz_interval == 0
+            or t % 1000 == 0
+        ):
+            return True
+        dc = self.density_cfg
+        if (dc["prune_from_iter"] <= t < dc["prune_until_iter"]
+                and (t - dc["prune_from_iter"]) % dc["prune_interval"] == 0):
+            return True
+        if (dc["densify_from_iter"] <= t < dc["densify_until_iter"]
+                and (t - dc["densify_from_iter"] - dc["densify_interval"])
+                % dc["densify_interval"] == 0):
+            return True
+        return False
+
+    def _periodic_check(self, t_iter: int, render) -> None:
+        cfg = self.cfg
+        if t_iter > 0 and t_iter % cfg.train.save_ckpt_interval == 0:
+            self.save_ckpt(f"{t_iter:06d}")
+        if t_iter > 0 and t_iter % cfg.train.val_interval == 0:
+            self.validate(f"{t_iter:06d}")
+        if (self.anim_dataset is not None and t_iter > 0
+                and t_iter % cfg.train.anim_interval == 0):
+            self.animate_chunk(iter_s=f"{t_iter:06d}", max_frames=32,
+                               save_video=False)
+        if t_iter > 0 and t_iter % cfg.train.viz_interval == 0:
+            self.visualize(f"{t_iter:06d}")
+        if t_iter % 1000 == 0 and t_iter > 0:
+            if self.active_sh_degree < self.cfg.human.sh_degree:
+                self.active_sh_degree += 1
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _fwd_numpy(self) -> dict:
+        """Fresh forward for density decisions, pulled to the host."""
+        out = avatar_forward(self.params, self.buffers, self.avatar_cfg,
+                             self.template, self.cache, dataset_idx=0,
+                             smpl_scale=torch.ones(1, device=self.device))
+        return {k: v.cpu().numpy() for k, v in out.items()
+                if k in ("xyz_canon", "scales_canon", "scales", "shs",
+                         "opacity")}
+
+    def _buffers_numpy(self) -> dict:
+        return {f: getattr(self.buffers, f).cpu().numpy()
+                for f in self.buffers._fields}
+
+    def _apply_density_result(self, res) -> None:
+        if not res.changed:
+            return
+        b = self.buffers
+
+        def t(x, like):
+            return torch.as_tensor(np.asarray(x), dtype=like.dtype,
+                                   device=self.device).reshape(like.shape)
+
+        self.buffers = b._replace(
+            alive=t(res.alive, b.alive),
+            scaling_multiplier=t(res.scaling_multiplier,
+                                 b.scaling_multiplier),
+            lbs_weights=t(res.lbs_weights, b.lbs_weights),
+            vertex_label=t(res.vertex_label, b.vertex_label),
+            anchor_normals=t(res.anchor_normals, b.anchor_normals),
+            faces=t(res.faces, b.faces),
+            face_valid=t(res.face_valid, b.face_valid),
+            edges=t(res.edges, b.edges),
+            edge_valid=t(res.edge_valid, b.edge_valid),
+            num_level0=t(res.num_alive, b.num_level0),
+            max_radii2d=torch.zeros_like(b.max_radii2d),
+            xyz_grad_accum=torch.zeros_like(b.xyz_grad_accum),
+            grad_denom=torch.zeros_like(b.grad_denom),
+        )
+        if res.new_xyz is not None:
+            self.params = self.params._replace(
+                xyz=t(res.new_xyz, self.params.xyz))
+        self.opt_state = zero_moments_for_slots(
+            self.opt_state, torch.as_tensor(res.changed_slots,
+                                            device=self.device))
+        self._reset_opacity()
+        self._rebuild_laplacians()
+
+    @torch.no_grad()
+    def _reset_opacity(self) -> None:
+        """Raise the opacity floor to 0.5 (sings_hybrid.py:1260-1278)."""
+        if self.avatar_cfg.fixed_opacity:
+            return
+        feats = triplane_features(self.params.triplane, self.params.xyz,
+                                  self.avatar_cfg.triplane)
+        logit = appearance_opacity_logit(self.params.appearance_dec, feats,
+                                         self.avatar_cfg.decoder)
+        offset = torch.where(logit > 0, torch.zeros_like(logit), -logit)
+        self.buffers = self.buffers._replace(opacity_offset=offset)
+
+    def _adjust_density(self, t_iter: int) -> None:
+        dc = self.density_cfg
+        prune_flag = False
+        if (dc["prune_from_iter"] <= t_iter < dc["prune_until_iter"]
+                and (t_iter - dc["prune_from_iter"])
+                % dc["prune_interval"] == 0):
+            fwd = self._fwd_numpy()
+            res = prune_and_simplify(
+                self._buffers_numpy(), self.params.xyz.cpu().numpy(), fwd,
+                opacity_threshold=dc["prune_opacity_threshold"],
+                scale_threshold=dc["prune_scale_threshold"],
+                prune_max_n_gs_once=dc.get("prune_max_n_gs_once", 5000),
+                min_n_gs=int(self.cfg.human.density_control.min_n_gaussians),
+                collapse_rate=dc.get("prune_collapse_rate", 0.5),
+                face_capacity=self.avatar_cfg.face_capacity,
+                edge_capacity=self.avatar_cfg.edge_capacity)
+            if res.changed:
+                prune_flag = True
+                print(f"[density] prune -> {res.num_alive} gaussians")
+                self._apply_density_result(res)
+
+        if (dc["densify_from_iter"] <= t_iter < dc["densify_until_iter"]
+                and (t_iter - dc["densify_from_iter"]
+                     - dc["densify_interval"])
+                % dc["densify_interval"] == 0):
+            if prune_flag:
+                # reference quirk: skip + drift the interval
+                # (gs_trainer.py:311-313)
+                dc["densify_interval"] += 1
+                return
+            fwd = self._fwd_numpy()
+            res = densify_and_subdivide(
+                self._buffers_numpy(), self.params.xyz.cpu().numpy(), fwd,
+                grad_threshold=dc["densify_grad_threshold"],
+                scale_threshold=dc["densify_scale_threshold"],
+                max_screen_size=dc.get("densify_render_size_threshold", 20),
+                max_n_gs=int(self.cfg.human.density_control.max_n_gaussians),
+                face_capacity=self.avatar_cfg.face_capacity,
+                edge_capacity=self.avatar_cfg.edge_capacity)
+            if res.changed:
+                print(f"[density] densify -> {res.num_alive} gaussians")
+                new_mask = res.changed_slots > 0.5
+                self._apply_density_result(res)
+                self._rescale_new_scales(new_mask, fwd)
+
+    def _rescale_new_scales(self, new_mask: np.ndarray, old_fwd: dict):
+        """Match decoded scales of new slots to interpolated targets
+        (sings_hybrid.py:1140-1147): target = clipped mean parent scale."""
+        fwd = self._fwd_numpy()
+        target = np.clip(old_fwd["scales_canon"].mean(-1), None, 0.008)
+        fresh = fwd["scales_canon"].mean(-1)
+        mult = self.buffers.scaling_multiplier.cpu().numpy().copy()
+        ratio = np.clip(target.mean() / np.maximum(fresh, 1e-9), 0.05, 20.0)
+        mult[new_mask, 0] *= ratio[new_mask]
+        self.buffers = self.buffers._replace(
+            scaling_multiplier=torch.as_tensor(mult, device=self.device))
+
+    # ------------------------------------------------------------------
+    def _pose_tensors(self, data: dict) -> dict:
+        """Explicit SMPL arguments of a render as device tensors; the
+        learned per-frame pose of data['dataset_idx'] when global_orient
+        is None."""
+        p = self.params
+        if data.get("global_orient") is None and "dataset_idx" in data:
+            i = int(data["dataset_idx"])
+            data = dict(
+                data,
+                global_orient=rotation_6d_to_axis_angle(
+                    p.global_orient[i].reshape(1, 6)).reshape(3),
+                body_pose=rotation_6d_to_axis_angle(
+                    p.body_pose[i].reshape(-1, 6)).reshape(-1),
+                betas=p.betas, transl=p.transl[i])
+
+        def t(x):
+            if not isinstance(x, torch.Tensor):
+                x = np.asarray(x, np.float32)
+            return torch.as_tensor(x, device=self.device)
+
+        betas = data.get("betas")
+        out = {"global_orient": t(data["global_orient"]),
+               "body_pose": t(data["body_pose"]),
+               "betas": t(p.betas if betas is None else betas),
+               "transl": t(data["transl"]),
+               "smpl_scale": t(data.get("smpl_scale", np.ones(1)))}
+        if data.get("ext_tfs") is not None:
+            out["ext_tfs"] = tuple(t(x) for x in data["ext_tfs"])
+        return out
+
+    def _render_pose(self, pose: dict, camera, bg):
+        """avatar_forward (eval mode) + rasterize of one pose: the raw
+        render (3, H, W) and the forward outputs; differentiable in the
+        pose tensors."""
+        out = avatar_forward(
+            self.params, self.buffers, self.avatar_cfg, self.template,
+            self.cache, global_orient=pose["global_orient"],
+            body_pose=pose["body_pose"], betas=pose["betas"],
+            transl=pose["transl"], smpl_scale=pose["smpl_scale"],
+            ext_tfs=pose.get("ext_tfs"), eval_mode=True)
+        shs = out["shs"] * sh_degree_mask(self.active_sh_degree,
+                                          self.device)[None, :, None]
+        pkg = rasterize(out["xyz"], out["scales"], out["rotq"],
+                        out["opacity"][:, 0], shs, camera, sh_degree=3,
+                        bg=bg, alive=self.buffers.alive > 0.5,
+                        backend="pallas", **self.raster_kw)
+        # the raw render: val psnr/ssim read it unclamped
+        return pkg["render"], out
+
+    @torch.no_grad()
+    def _render_eval(self, data: dict, camera=None, bg=None):
+        camera = camera or self.camera
+        bg = self.bg_color * 0 if bg is None else bg
+        return self._render_pose(self._pose_tensors(data), camera, bg)
+
+    def _val_pose_refine(self, data: dict, frame: int, steps: int) -> dict:
+        """Test-time pose refinement of a val frame: Adam (lr 2e-3, as
+        optax.adam) on (global_orient, body_pose, transl) of the frozen
+        avatar against the masked MSE; a step with non-finite gradients
+        applies zero gradients, as in the JAX package."""
+        gt = self.images[frame]
+        mask = self.masks[frame][None]
+        full = self._pose_tensors(data)
+        names = ("body_pose", "global_orient", "transl")
+        pose = {k: full[k].clone() for k in names}
+        state = adam_init(pose)
+        zero_bg = torch.zeros(3, device=self.device)
+        for _ in range(steps):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in pose.items()}
+            img, _ = self._render_pose(dict(full, **leaves), self.camera,
+                                       zero_bg)
+            loss = (((img - gt) * mask) ** 2).sum() / torch.clamp_min(
+                mask.sum() * 3, 1.0)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            grads = {k: torch.where(finite, g, torch.zeros_like(g))
+                     for k, g in zip(names, grads)}
+            direction, state = adam_directions(grads, state, eps=1e-8)
+            pose = {k: pose[k] - 2e-3 * direction[k] for k in names}
+        return {k: v.detach().cpu().numpy() for k, v in pose.items()}
+
+    def _val_gauge_alignment(self):
+        """Global canonical-frame drift, estimated from TRAIN frames only:
+        dR = polar(sum_i R_learned_i R_fit_i^T), dt = mean_i(t_learned_i
+        - dR t_fit_i). Returns (dR (3, 3), dt (3,)) numpy, or None when
+        the poses are not learned."""
+        if self.params.global_orient is None:
+            return None
+        tr = np.asarray(self.kit.train_split)
+        idx = torch.as_tensor(tr, device=self.params.global_orient.device)
+        r_l = rotation_6d_to_matrix(
+            self.params.global_orient[idx].reshape(-1, 6)).cpu().numpy()
+        r_f = axis_angle_to_matrix(torch.as_tensor(np.asarray(
+            self.kit.smpl["global_orient"], np.float32)[tr].reshape(-1, 3))
+        ).numpy()
+        m = np.einsum("fij,fkj->ik", r_l, r_f)  # sum R_l R_f^T
+        u, _s, vt = np.linalg.svd(m)
+        d = np.sign(np.linalg.det(u @ vt))
+        dr = u @ np.diag([1.0, 1.0, d]) @ vt
+        t_l = self.params.transl[idx].cpu().numpy()
+        t_f = self.kit.smpl["transl"][tr]
+        dt = (t_l - t_f @ dr.T).mean(axis=0)
+        return dr.astype(np.float32), dt.astype(np.float32)
+
+    def validate(self, iter_s="final") -> dict:
+        """The reference protocol's psnr/ssim/lpips (black-bg render vs
+        raw GT) plus psnr_masked, psnr_composite, the gauge-aligned and
+        pose-refined masked PSNRs, the train-frame masked PSNR and the
+        attribute diagnostics, written to results_{train,eval}.json. The
+        diagnostics print their failure instead of raising, as in the JAX
+        package."""
+        metrics = {"psnr": [], "ssim": [], "lpips": [], "psnr_masked": [],
+                   "psnr_composite": []}
+        refine_steps = int(self.cfg.tpu.get("val_pose_refine_steps", 0))
+        if refine_steps > 0:
+            metrics["psnr_masked_refined"] = []
+        gauge = None
+        if bool(self.cfg.tpu.get("val_gauge_align", True)):
+            try:
+                gauge = self._val_gauge_alignment()
+            except Exception as e:  # diagnostics must never kill a run
+                print(f"[val] gauge alignment failed: {e}", flush=True)
+        if gauge is not None:
+            metrics["psnr_masked_aligned"] = []
+        zero_bg = torch.zeros(3, device=self.device)
+        for i, frame in enumerate(self.kit.val_split):
+            data = {"global_orient": self.kit.smpl["global_orient"][frame],
+                    "body_pose": self.kit.smpl["body_pose"][frame],
+                    "betas": self.kit.smpl["betas"],
+                    "transl": self.kit.smpl["transl"][frame]}
+            img, _ = self._render_eval(data, bg=zero_bg)
+            gt = self.images[frame]
+            m = self.masks[frame][None]
+            metrics["psnr"].append(float(psnr(img, gt)))
+            metrics["ssim"].append(float(ssim(img, gt)))
+            with torch.no_grad():
+                metrics["lpips"].append(float(lpips_distance(
+                    self.lpips_params, img[None].clamp(max=1.0),
+                    gt[None])[0]))
+            metrics["psnr_masked"].append(_masked_psnr(img, gt, m))
+            metrics["psnr_composite"].append(float(psnr(img, gt * m)))
+            if gauge is not None:
+                try:
+                    dr, dt = gauge
+                    r_val = axis_angle_to_matrix(torch.as_tensor(
+                        np.asarray(data["global_orient"], np.float32)
+                    ).reshape(1, 3))[0]
+                    go_a = matrix_to_axis_angle(
+                        (torch.as_tensor(dr) @ r_val)[None])[0].numpy()
+                    data_a = dict(
+                        data, global_orient=go_a,
+                        transl=dr @ data["transl"] + dt,
+                        betas=self.params.betas.cpu().numpy())
+                    img_a, _ = self._render_eval(data_a, bg=zero_bg)
+                    metrics["psnr_masked_aligned"].append(
+                        _masked_psnr(img_a, gt, m))
+                except Exception as e:
+                    print(f"[val] gauge-aligned render failed: {e}",
+                          flush=True)
+                    gauge = None
+                    metrics.pop("psnr_masked_aligned", None)
+            if refine_steps > 0:
+                try:
+                    pose = self._val_pose_refine(data, frame, refine_steps)
+                    img_r, _ = self._render_eval(dict(data, **pose),
+                                                 bg=zero_bg)
+                    metrics["psnr_masked_refined"].append(
+                        _masked_psnr(img_r, gt, m))
+                except Exception as e:
+                    print(f"[val] pose refine failed: {e}", flush=True)
+                    refine_steps = 0
+                    metrics.pop("psnr_masked_refined", None)
+            if i < 4:
+                self._save_image_pair(gt, img, os.path.join(
+                    self.logdir, "val", f"full_{iter_s}_{i:03d}.png"))
+        result = {k: float(np.mean(v)) for k, v in metrics.items()}
+        # train-frame masked PSNR with the learned per-frame poses
+        try:
+            tr = []
+            for frame in self.kit.train_split[:: max(
+                    1, len(self.kit.train_split) // 8)][:8]:
+                img, _ = self._render_eval(
+                    {"global_orient": None, "body_pose": None, "betas": None,
+                     "transl": None, "dataset_idx": int(frame)}, bg=zero_bg)
+                tr.append(_masked_psnr(img, self.images[frame],
+                                       self.masks[frame][None]))
+            result["psnr_masked_train"] = float(np.mean(tr))
+        except Exception as e:  # diagnostics must never kill a run
+            print(f"[val] train-frame diagnostics failed: {e}", flush=True)
+        # random-feature LPIPS is not comparable to the pretrained metric
+        result["lpips_pretrained"] = bool(self.lpips_params.pretrained)
+        try:
+            with torch.no_grad():
+                attrs = get_gs_attrs(self.params, self.buffers,
+                                     self.avatar_cfg)
+            alive = self.buffers.alive.cpu().numpy() > 0.5
+            sc = attrs["scales"].cpu().numpy()[alive]
+            op = attrs["opacity"].cpu().numpy()[alive].reshape(-1)
+            print(f"[val {iter_s}] scales mean/p99/max "
+                  f"{sc.mean():.4f}/{np.percentile(sc, 99):.4f}/"
+                  f"{sc.max():.4f} opacity mean/p99 {op.mean():.4f}/"
+                  f"{np.percentile(op, 99):.4f}", flush=True)
+            result["scales_p99"] = float(np.percentile(sc, 99))
+            result["opacity_mean"] = float(op.mean())
+        except Exception as e:  # diagnostics must never kill a run
+            print(f"[val] attr diagnostics failed: {e}", flush=True)
+        self.eval_metrics[iter_s] = result
+        print(f"[val {iter_s}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in result.items()), flush=True)
+        run_mode = "eval" if self.cfg.get("eval") else "train"
+        with open(os.path.join(self.logdir,
+                               f"results_{run_mode}.json"), "w") as fh:
+            json.dump(self.eval_metrics, fh, indent=2)
+        return result
+
+    def _save_image_pair(self, gt, pred, path: str) -> None:
+        a = (gt.permute(1, 2, 0).cpu().numpy() * 255).astype(np.uint8)
+        self.save_image(path, np.concatenate([a, _to_uint8(pred)], axis=1))
+
+    # ------------------------------------------------------------------
+    def render_canonical(self, iter_s="final", nframes=10, img_size=256,
+                         pose_type=None) -> None:
+        """Turntable render in a static pose (gs_trainer.py:757-851)."""
+        pose_type = pose_type or self.cfg.human.canon_pose_type
+        cams = get_rotating_cameras(img_size=img_size, nframes=nframes,
+                                    device=self.device)
+        static = get_smpl_static_params(self.params.betas.cpu().numpy(),
+                                        pose_type=pose_type)
+        out_dir = os.path.join(self.logdir, "canon")
+        for i, cam in enumerate(cams):
+            img, _ = self._render_eval(static, camera=cam, bg=self.bg_color)
+            self.save_image(os.path.join(out_dir, f"{pose_type}_{i:05d}.png"),
+                            _to_uint8(img))
+
+    @torch.no_grad()
+    def visualize(self, iter_s) -> None:
+        out = avatar_forward(self.params, self.buffers, self.avatar_cfg,
+                             self.template, self.cache, dataset_idx=0,
+                             smpl_scale=torch.ones(1, device=self.device))
+        out = {k: v.cpu().numpy() for k, v in out.items()
+               if isinstance(v, torch.Tensor)}
+        alive = self.buffers.alive.cpu().numpy()
+        mesh_dir = os.path.join(self.logdir, "meshes")
+        save_ply(out, os.path.join(mesh_dir, f"human_pcd_{iter_s}_splat.ply"),
+                 alive=alive)
+        save_ellipsoid_mesh(out, os.path.join(
+            mesh_dir, f"human_voxel_{iter_s}_deformed_rgb.ply"), alive=alive)
+
+    def save_splat_file(self, pose_type="little_a_pose") -> str:
+        data = get_smpl_static_params(self.params.betas.cpu().numpy(),
+                                      pose_type=pose_type)
+        _, out = self._render_eval(data, bg=self.bg_color)
+        path = os.path.join(self.logdir, "showcase.splat")
+        save_splat({k: v.cpu().numpy() for k, v in out.items()
+                    if isinstance(v, torch.Tensor)}, path,
+                   alive=self.buffers.alive.cpu().numpy())
+        return path
 
     # ------------------------------------------------------------------
     def _fit_synthetic_body(self):
@@ -399,19 +957,42 @@ class Trainer:
             return
         raise NotImplementedError(
             "fitting the synthetic template (keypoint + silhouette "
-            "refinement) is not ported yet (ROADMAP queue A 2); set "
-            "tpu.auto_fit_synthetic=False, run with eval=True "
-            "or provide synthetic_fit.npz")
+            "refinement) is a later slice of the port (ROADMAP queue A); "
+            "set tpu.auto_fit_synthetic=False, run with eval=True or "
+            "provide synthetic_fit.npz")
 
-    def load_ckpt(self, path: str) -> None:
-        res = load_checkpoint(path, self.avatar_cfg,
-                              num_joints=self.tpl.lbs_weights.shape[1],
-                              device=self.device)
+    def save_ckpt(self, iter_s="final") -> str:
+        path = os.path.join(self.logdir_ckpt, f"human_{iter_s}.npz")
+        save_checkpoint(path, params=self.params, buffers=self.buffers,
+                        opt_state=getattr(self, "opt_state", None),
+                        step=self.step,
+                        active_sh_degree=self.active_sh_degree)
+        print(f"[ckpt] saved {path}", flush=True)
+        return path
+
+    def load_ckpt(self, path: str) -> bool:
+        """Load params, buffers, step, SH degree and, in train mode, the
+        Adam state; False (and the state untouched) when the checkpoint
+        does not fit this config."""
+        training = self.mode == "train"
+        try:
+            res = load_checkpoint(path, self.avatar_cfg,
+                                  num_joints=self.tpl.lbs_weights.shape[1],
+                                  device=self.device, with_opt=training)
+        except CheckpointShapeMismatch as e:
+            print(f"[ckpt] IGNORING {path}: {e} (likely written with a "
+                  "different capacity/config) - training from scratch",
+                  flush=True)
+            return False
         self.params = res["params"]
         self.buffers = res["buffers"]
         self.step = res["step"]
         self.active_sh_degree = res["active_sh_degree"]
+        if training:
+            self.opt_state = res["opt_state"]
+            self._rebuild_laplacians()
         print(f"[ckpt] loaded {path} (step {self.step})", flush=True)
+        return True
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -475,7 +1056,7 @@ class Trainer:
         pending: list[tuple] = []
         encodes = []
         with cf.ThreadPoolExecutor(max_workers=4) as pool:
-            sink = writer or _jpeg_writer(out_dir, pool)
+            sink = writer or _jpeg_writer(out_dir, pool, self.save_image)
 
             def drain(limit):
                 nonlocal frames_done

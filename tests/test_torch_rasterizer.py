@@ -200,4 +200,6 @@ def test_cuda_wrapper_refuses_cpu_and_backward_raises():
     # the backward runs too, through the plain version on the CPU
     r["render"].sum().backward()
     assert torch.isfinite(ta[0].grad).all() and float(ta[0].grad.abs().max()) > 0
-    assert tk.LAUNCHES == {"composite_fwd": 0, "composite_bwd": 0}
+    assert tk.LAUNCHES == {"composite_fwd": 0, "composite_bwd": 0,
+                           "composite_fwd_panel": 0,
+                           "composite_bwd_panel": 0}

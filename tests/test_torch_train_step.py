@@ -10,7 +10,7 @@ region laplacian). Both packages then take the same step(s) at step
 chunk-head KNN statistic. Compared: every loss term, the gradients
 (recovered from the first Adam moments), the new parameters and the
 density buffers, at the tolerances stated below. Also the non-finite
-guard, the train-mode Trainer at tiny size, and Trainer.train()'s
+guard, the train-mode Trainer at tiny size, and the LPIPS loss's
 refusal.
 """
 import os
@@ -404,12 +404,20 @@ def test_trainer_train_mode_builds_and_scans(tmp_path):
 
 
 def test_trainer_train_loop_and_lpips_are_later_slices(tmp_path):
+    """The training loop is ported (tests/test_torch_train_loop.py): a
+    run already at its last step trains no step and ends with the final
+    checkpoint and validation. The LPIPS training loss stays refused
+    until pretrained weights ship with the repository."""
     from sings_tpu_torch.train.trainer import Trainer
 
-    cfg = _tiny_trainer_cfg(tmp_path, ["train.init_steps=0"])
-    tr = Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
-    with pytest.raises(NotImplementedError, match="queue A 2"):
-        tr.train()
+    cfg = _tiny_trainer_cfg(tmp_path, ["train.init_steps=0",
+                                       "train.num_steps=0"])
+    tr = Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit(),
+                 image_writer=lambda path, img: None)
+    result = tr.train()
+    assert tr.step == 0 and int(tr.opt_state.count) == 0
+    assert np.isfinite(result["psnr"]) and np.isfinite(result["lpips"])
+    assert os.path.exists(os.path.join(tr.logdir_ckpt, "human_final.npz"))
     cfg = _tiny_trainer_cfg(tmp_path / "b", ["tpu.random_lpips_factor=0.05"])
     with pytest.raises(NotImplementedError, match="LPIPS"):
         Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
@@ -455,3 +463,4 @@ def test_chip_smoke_train_dotlist_is_the_recipe():
             None, tdefaults.DEFAULT_COLOR_REGIONS_W))
     assert "tpu.inner_steps=8" in smoke.BENCH_TRAIN_DOTLIST
     assert get(want, "tpu.inner_steps") in (None, 8)
+    assert smoke.RECIPE_INIT_STEPS == get(want, "train.init_steps")
