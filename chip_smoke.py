@@ -15,12 +15,14 @@ training step, Trainer(cfg, mode="train").train_scan, as bench.py's
 recipe benchmark drives it (8 steps a chunk); and the training entry
 point, python -m sings_tpu_torch.cli.train (cli.train.main with the kit
 held in memory) with tpu.raster.layout=panel, resumed from a
-checkpoint. Phases:
+checkpoint; and the kernel experiments, python -m
+sings_tpu_torch.scripts.{exp_cumsum_kernel,exp_bwd_moments,
+exp_bwd_variants} at their own sizes. Phases:
 
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
-                each one kernel for both layouts) and g++ (mesh_native),
-                timed
+                each one kernel for both layouts; composite_bwd_variants.cu
+                and chunk_scan_bench.cu) and g++ (mesh_native), timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
@@ -73,6 +75,23 @@ checkpoint. Phases:
                 CUDA-event times against their plain versions' and
                 their bounds, the tiled kernels' on the same inputs; the
                 host-clock split of train()
+ 13 scan        exp_cumsum_kernel.main at 4096 steps, launches counted
+                from 0; each mode's kernel against its plain version;
+                the entry point's times per step against the function's
+                bound (4 operations an element at the card's rate; one
+                SM's share beside it) and one torch.cumsum over the
+                (128, 256) block
+ 14 experiments exp_bwd_moments.main and exp_bwd_variants.main on the
+                bench scene (50,000 gaussians, 512x512), launches
+                counted from 0; on each bench scene every backward form
+                against its plain version and, at the scripts' 2e-4 *
+                max(scale, 1), against composite_bwd; v2 bitwise equal
+                to v4; the entry points' times of each form and of
+                composite_bwd on the same inputs; composite_bwd's bound.
+                The same five kernels also run on phase 7's training
+                frame and on phase 12's trained-avatar frame (in those
+                phases, with the loss's cotangents): each against its
+                plain version, its gap to composite_bwd reported
 Every failure raises; the script exits 0 only when every phase passed,
 and then prints the kernels line and, last, the device line.
 """
@@ -220,7 +239,8 @@ SEED = 0
 # largest kernel-vs-plain error of each panel kernel over every check
 PANEL_ERRS = {"composite_fwd_panel": 0.0, "composite_bwd_panel": 0.0}
 # the CUDA sources, each one kernel for both layouts
-SOURCES = ["composite_fwd", "composite_bwd"]
+SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
+           "chunk_scan_bench"]
 
 
 def log(msg: str) -> None:
@@ -690,6 +710,9 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     del trainer, gs_attrs, posed, frame0, feats, binning, want, got
     torch.cuda.empty_cache()
     kernels.extend(run_train(work, dev, smi, profile_dir))
+    # ---- 13 the scan micro-benchmark, 14 the backward's formulas
+    kernels.extend(run_scan(dev, smi))
+    kernels.extend(finish_form_rows(run_experiments(dev, smi)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1229,6 +1252,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"step | {smi}")
     if profile_dir:
         profile_train(trainer, batches, bargs, bkw, profile_dir)
+    # the backward's experiment forms on this frame (phase 14's checks)
+    forms_on_frame("phase 7 training frame", bargs, bkw, binning, smi)
     bwd_row = {
         "name": "composite_bwd", "route": "cuda",
         "source": "sings_tpu_torch/csrc/composite_bwd.cu",
@@ -1519,6 +1544,10 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
     gout_p = to_planes(gout_t, ckw, 0.0)
     note_panel_errs(check_panel("train() window's frame (the loss's "
                                 "cotangents)", feats, binning, ckw, gout_p))
+    # the backward's experiment forms on this frame (phase 14's checks)
+    forms_on_frame("phase 12 trained-avatar frame",
+                   (feats, offs, goffs, fwd_t, gout_t),
+                   dict(ckw, grad_cap=cap), binning, smi)
     fwd_p = K.composite_fwd_cuda(feats, offs, **pkw)
     _, walked, composited = K.composite_bwd_plain(
         feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, return_counts=True,
@@ -1719,6 +1748,263 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
         log(f"[profile train] {line}")
     with open(os.path.join(out_dir, "profile_train.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# the experiment kernels (phases 13-14): sings_tpu_torch.scripts
+
+# row 6 against its plain version: each step's row sums are taken in
+# another order (both accumulate the steps one after another), within
+# this share of the largest output
+SCAN_RTOL = 1e-5
+# fp32 operations per element and step that the function needs, in
+# every mode: the scaled copy la (1), the running sum down the rows (1),
+# minus la for the exclusive sum (1) and the row sum (1), as the cumsum
+# mode does them (csrc/chunk_scan_bench.cu; tri and tri3 multiply by the
+# whole 0/1 triangle, 258 and 774). The bound takes them at the card's
+# fp32 rate; one CTA can use one SM of 132, whose share is reported
+# beside it (bound_one_sm_ms)
+SCAN_FN_OPS = 4
+H100_SMS = 132
+# the backward forms: every form computes composite_bwd's gradients, and
+# composite_bwd's form needs the fewest operations (34 per compositing
+# pair-pixel; composite_bwd_variants.cu counts v1 61, v3 48, the moment
+# forms 36 and 39 per written pair), so each form's bound is
+# composite_bwd's: OPS_PER_PAIR_PIXEL_BWD, OPS_PER_COMPOSITE_BWD
+FORMS = ("moments", "v1", "v3", "v4", "v2")
+# the scripts' own check against composite_bwd: 2e-4 * max(scale, 1)
+# (scripts/exp_bwd_moments.py:276)
+SCRIPT_RTOL = 2e-4
+FORM_REPLACES = {"moments": "scripts/exp_bwd_moments.py:199",
+                 "v1": "scripts/exp_bwd_variants.py:259",
+                 "v3": "scripts/exp_bwd_variants.py:259",
+                 "v4": "scripts/exp_bwd_variants.py:259",
+                 "v2": "scripts/exp_bwd_variants.py:259"}
+# largest kernel-vs-plain error of each form over every check, and the
+# gaps to composite_bwd on the human_complex frames (reported only)
+FORM_ERRS = {f: 0.0 for f in FORMS}
+FRAME_GAPS = {}
+
+
+def form_fns(form: str, kw: dict):
+    from sings_tpu_torch.ops.rasterizer import variants as V
+
+    if form == "moments":
+        return (lambda *a: V.composite_bwd_moments_cuda(*a, **kw),
+                lambda *a: V.composite_bwd_moments_plain(*a, **kw))
+    return (lambda *a: V.composite_bwd_variant_cuda(*a, variant=form, **kw),
+            lambda *a: V.composite_bwd_variant_plain(*a, variant=form, **kw))
+
+
+def written_gap(got, ref, binning) -> tuple:
+    """Largest |got - ref| on the slots the kernels write, and that over
+    max(scale, 1) (the scripts' measure) and over each row's scale."""
+    from sings_tpu_torch.scripts._scene import written_slots
+
+    slots = written_slots(binning)
+    g, r = got[:, slots], ref[:, slots]
+    err = (g - r).abs()
+    scale = r.abs().amax(dim=1).clamp_min(1e-12)
+    return (float(err.max()), float(err.max()) / max(float(r.abs().max()),
+                                                     1.0),
+            float((err.amax(dim=1) / scale).max()))
+
+
+def forms_on_frame(name: str, args, kw: dict, binning, smi: str) -> None:
+    """The five backward forms on a human_complex frame: each against its
+    plain version (asserted, as composite_bwd is), v2 bitwise v4, the
+    gap to composite_bwd on the same inputs (reported), and the times of
+    all six kernels there (ops.timing.device_time, as the entry points
+    time them)."""
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.timing import device_time
+
+    def ms(fn) -> float:
+        return device_time(fn, args, k1=1, k2=6, repeats=2) * 1e3
+
+    ref = K.composite_bwd_cuda(*args, **kw)
+    times = {"composite_bwd": ms(lambda *a: K.composite_bwd_cuda(*a, **kw))}
+    outs, gaps = {}, {}
+    for form in FORMS:
+        fn, plain = form_fns(form, kw)
+        outs[form] = fn(*args)
+        torch.cuda.synchronize()
+        FORM_ERRS[form] = max(FORM_ERRS[form], check_bwd(
+            f"{form} {name}", outs[form], plain(*args), binning))
+        gaps[form] = written_gap(outs[form], ref, binning)
+        times[form] = ms(fn)
+    if not torch.equal(outs["v2"], outs["v4"]):
+        raise AssertionError(f"{name}: v2 is not bitwise equal to v4")
+    FRAME_GAPS[name] = gaps
+    log(f"[experiments] {name}: gap to composite_bwd (max abs, over "
+        f"max(scale, 1), over the row's scale): " + ", ".join(
+            f"{f} {g[0]:.3e} / {g[1]:.3e} / {g[2]:.3e}"
+            for f, g in gaps.items()))
+    log(f"[experiments] {name}: ms " + ", ".join(
+        f"{f} {t:.4f}" for f, t in times.items()) + f" | {smi}")
+
+
+def run_scan(dev, smi: str) -> list:
+    """Phase 13: the entry point exp_cumsum_kernel at 4096 steps, its
+    launches counted from 0; each mode's kernel against its plain
+    version; times per step (one window's scan) against the bound and
+    one torch.cumsum over the block. Returns row 6's kernels-line rows,
+    one per mode, in ms per step."""
+    from sings_tpu_torch.device import set_full_float32
+    from sings_tpu_torch.ops import scan_bench as SB
+    from sings_tpu_torch.scripts import exp_cumsum_kernel
+
+    set_full_float32()
+    SB.reset_launches()
+    torch.cuda.synchronize()
+    res = exp_cumsum_kernel.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(SB.MODE_LAUNCHES)
+    steps = res["steps"]
+    log(f"[scan] exp_cumsum_kernel.main: {steps} steps, launches "
+        f"{launches} ({SB.LAUNCHES['chunk_scan_bench']} in all)")
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(
+        SB.CHUNK, SB.NPX).astype(np.float32)).to(dev)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0), n=200, warm=10)
+    rows = []
+    for mode in SB.MODES:
+        if launches[mode] == 0:
+            raise AssertionError(f"chunk_scan_bench {mode} never launched")
+        got = SB.chunk_scan_bench_cuda(x, mode=mode)
+        want = SB.chunk_scan_bench_plain(x, mode=mode)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or rel > SCAN_RTOL:
+            raise AssertionError(f"chunk_scan_bench {mode} disagrees with "
+                                 f"its plain version: {rel:.3e}")
+        plain_ms = cuda_ms(lambda: SB.chunk_scan_bench_plain(x, mode=mode),
+                           n=2, warm=1)
+        ms = res["modes"][mode]["ms"]
+        ops = SCAN_FN_OPS * SB.CHUNK * SB.NPX * steps
+        ops_ms = ops / H100_FP32_FLOPS * 1e3
+        bytes_ms = 4 * (SB.CHUNK * SB.NPX + SB.NPX) / H100_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        one_sm_ms = ops / (H100_FP32_FLOPS / H100_SMS) * 1e3
+        log(f"[scan] {mode}: {ms:.4f} ms for {steps} steps "
+            f"({1e3 * ms / steps:.4f} us a step), plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.6f} ms (the card; one SM's share "
+            f"{one_sm_ms:.4f} ms), torch.cumsum of the block "
+            f"{1e3 * lib_ms:.4f} us, max_abs_err {err:.3e} (rel "
+            f"{rel:.2e}) | {smi}")
+        rows.append({
+            "name": f"chunk_scan_bench[{mode}] (ms per step)",
+            "route": "cuda",
+            "source": "sings_tpu_torch/csrc/chunk_scan_bench.cu",
+            "replaces": "scripts/exp_cumsum_kernel.py:73",
+            "launches": launches[mode], "max_abs_err": err,
+            "ms": ms / steps, "plain_ms": plain_ms / steps,
+            "bound_ms": bound_ms / steps,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_one_sm_ms": one_sm_ms / steps,
+            "library_ms": lib_ms,
+        })
+    return rows
+
+
+def run_experiments(dev, smi: str) -> list:
+    """Phase 14: the entry points exp_bwd_moments and exp_bwd_variants
+    at their full sizes, launches counted from 0; then on each bench
+    scene every form against its plain version and, at the scripts'
+    tolerance, against composite_bwd; v2 bitwise v4; bounds. The times
+    of the forms and of composite_bwd on the same inputs are the entry
+    points' own. Returns rows 5 and 7 of the kernels line."""
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer import variants as V
+    from sings_tpu_torch.scripts import exp_bwd_moments, exp_bwd_variants
+    from sings_tpu_torch.scripts._scene import bench_scene
+
+    V.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_m = exp_bwd_moments.main(["--device", "cuda"])
+    res_v = exp_bwd_variants.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(V.LAUNCHES)
+    log(f"[experiments] exp_bwd_moments.main {json.dumps(res_m)}")
+    log(f"[experiments] exp_bwd_variants.main {json.dumps(res_v)}")
+    log(f"[experiments] both in {time.time() - t0:.1f}s, launches "
+        f"{launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched by the entry points")
+    times = {"moments": res_m["composite_bwd_moments_ms"], **res_v["ms"]}
+    rows = []
+    for gout, forms, bwd_ms in (
+            ("rand", ("moments",), res_m["composite_bwd_ms"]),
+            ("ones", ("v1", "v3", "v4", "v2"), res_v["composite_bwd_ms"])):
+        sc = bench_scene(dev, gout=gout)
+        args, kw = sc.args, sc.kw
+        ref = K.composite_bwd_cuda(*args, **kw)
+        _, walked, composited = K.composite_bwd_plain(
+            *args, return_counts=True, **kw)
+        n_tiles = kw["n_tiles_x"] * kw["n_tiles_y"]
+        npx = kw["tile"] ** 2
+        # composite_bwd's bound: the fewest operations for these gradients
+        ops = (OPS_PER_PAIR_PIXEL_BWD * walked * npx
+               + OPS_PER_COMPOSITE_BWD * composited)
+        nbytes = 4 * (9 * walked + 2 * (n_tiles + 1)
+                      + 2 * n_tiles * 4 * npx + 9 * kw["grad_cap"])
+        ops_ms = ops / H100_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"[experiments] bench scene (gout {gout}): pairs "
+            f"{int(sc.binning.num_pairs)}, walked {walked}, compositing "
+            f"pair-pixels {composited}, {tile_load(sc.binning)}; "
+            f"composite_bwd {bwd_ms:.4f} ms (the entry point's time), "
+            f"bound {bound_ms:.4f} ms (ops {ops_ms:.4f}, bytes "
+            f"{bytes_ms:.4f}) | {smi}")
+        outs = {}
+        for form in forms:
+            fn, plain = form_fns(form, kw)
+            outs[form] = fn(*args)
+            torch.cuda.synchronize()
+            err = check_bwd(f"{form} bench scene", outs[form], plain(*args),
+                            sc.binning)
+            FORM_ERRS[form] = max(FORM_ERRS[form], err)
+            gap = written_gap(outs[form], ref, sc.binning)
+            log(f"[experiments] {form} vs composite_bwd on the bench "
+                f"scene: max abs {gap[0]:.3e}, over max(scale, 1) "
+                f"{gap[1]:.3e} (script tolerance {SCRIPT_RTOL:g})")
+            if not gap[1] < SCRIPT_RTOL:
+                raise AssertionError(f"{form} disagrees with composite_bwd "
+                                     "on the bench scene")
+            plain_ms = cuda_ms(lambda: plain(*args), n=2, warm=1)
+            name = V.launch_name(form)
+            log(f"[timing] {name} {times[form]:.4f} ms (composite_bwd "
+                f"{bwd_ms:.4f} ms on the same inputs; both the entry "
+                f"point's), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+                f"ms, {launches[name]} launches by the entry point | {smi}")
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "sings_tpu_torch/csrc/composite_bwd_variants.cu",
+                "replaces": FORM_REPLACES[form],
+                "launches": launches[name], "max_abs_err": None,
+                "ms": times[form], "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None, "composite_bwd_ms": bwd_ms,
+            })
+        if "v2" in outs and not torch.equal(outs["v2"], outs["v4"]):
+            raise AssertionError("v2 is not bitwise equal to v4")
+        del sc, args, ref, outs
+    return rows
+
+
+def finish_form_rows(rows: list) -> list:
+    """Each form's largest kernel-vs-plain error over every check."""
+    from sings_tpu_torch.ops.rasterizer import variants as V
+
+    for row in rows:
+        for form in FORMS:
+            if row["name"] == V.launch_name(form):
+                row["max_abs_err"] = FORM_ERRS[form]
+    return rows
 
 
 if __name__ == "__main__":

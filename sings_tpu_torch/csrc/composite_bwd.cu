@@ -42,12 +42,11 @@
 // constants cfg and gtf come from one expression for both layouts (the
 // TPU's two layouts differ there by ~1 ulp), so with -fmad=false the
 // layouts' gradients agree bit for bit. Padding sub-tiles of the panel
-// layout walk an empty segment and write nothing. Per pair,
-// each thread's 9 contributions are summed over its warp with shuffles
-// (skipped when no lane of the warp composites the pair, which is most
-// warps for small splats), lane 0 keeps the warp's sums in shared
-// memory, and after the window the block sums the warps in a fixed
-// order and stores the window's (9, chunk) block with coalesced stores.
+// layout walk an empty segment and write nothing. The walk, the warp
+// shuffles and the fixed-order cross-warp sums are composite_common.cuh's
+// bwd_walk, shared with the experiments' forms of
+// composite_bwd_variants.cu; this file holds the form (Production): the
+// per-pixel terms and how a pair's nine rows come from their tile sums.
 // Every sum runs in a fixed order, so the output is the same from run
 // to run. Slots the kernel does not write (head and tail pairs outside
 // the segment, windows after the tile's exit, the spare window) keep
@@ -70,35 +69,46 @@
 
 namespace {
 
-using composite::kUsedRows;
+// The rasterizer's form of composite_common.cuh's bwd_walk: one
+// cotangent-weighted cumsum, per-pixel terms with the u/v CSE
+// (u = dl_dpow dx, v = dl_dpow dy), the conic applied per pair.
+struct Production {
+  using Carry = composite::WeightedCumsum;
 
-__global__ void composite_bwd_kernel(const float* __restrict__ feats,
-                                     long long stride,
-                                     const int* __restrict__ offsets,
-                                     const int* __restrict__ grad_offsets,
-                                     const float* __restrict__ fwd_out,
-                                     const float* __restrict__ gout,
-                                     float* __restrict__ grads,
-                                     long long gstride, int tile, int chunk,
-                                     int n_tiles_x, int row_tiles,
-                                     composite::PixelLayout lay) {
-  extern __shared__ float smem[];
-  const composite::TilePixel tp = composite::tile_pixel(
-      offsets, grad_offsets, tile, n_tiles_x, row_tiles, lay);
-  const float* fo = fwd_out + tp.at;
-  const float* go = gout + tp.at;
-  const long long r = lay.row;
-  float cfg, gtf;
-  composite::pixel_grad_constants(go[0], go[r], go[2 * r], go[3 * r], fo[0],
-                                  fo[r], fo[2 * r], fo[3 * r], &cfg, &gtf);
-  composite::bwd_walk(smem, smem + kUsedRows * chunk, feats, stride,
-                      tp.start, tp.end, chunk,
-                      static_cast<float>(tp.tx) * tile,
-                      static_cast<float>(tp.ty) * tile,
-                      static_cast<float>(tp.px), static_cast<float>(tp.py),
-                      go[0], go[r], go[2 * r], cfg, gtf, grads, gstride,
-                      tp.gbase);
-}
+  __device__ __forceinline__ static void terms(
+      Carry& carry, const float* sm, int chunk, int k,
+      const composite::Composite& c, float px, float py,
+      const composite::PixelGrad& pg, float* v) {
+    const float dl_da = carry.dl_da(sm, chunk, k, c, pg);
+    const float dl_dpow = sm[8 * chunk + k] * dl_da * c.a.gv;
+    const float u = dl_dpow * c.a.dx;
+    const float vv = dl_dpow * c.a.dy;
+    v[0] = u;
+    v[1] = vv;
+    v[2] = u * c.a.dx;
+    v[3] = u * c.a.dy;
+    v[4] = vv * c.a.dy;
+    v[5] = pg.g_r * c.w;
+    v[6] = pg.g_g * c.w;
+    v[7] = pg.g_b * c.w;
+    v[8] = c.a.gv * dl_da;
+  }
+
+  __device__ __forceinline__ static float row(int r, const float* sm,
+                                              const float* red, int chunk,
+                                              int k, int n_warps, float ox,
+                                              float oy) {
+    if (r < 2) {
+      const float su = composite::warps_sum(red, 0, k, chunk, n_warps);
+      const float sv = composite::warps_sum(red, 1, k, chunk, n_warps);
+      return r == 0 ? -(sm[2 * chunk + k] * su + sm[3 * chunk + k] * sv)
+                    : -(sm[4 * chunk + k] * sv + sm[3 * chunk + k] * su);
+    }
+    const float s = composite::warps_sum(red, r, k, chunk, n_warps);
+    if (r == 2 || r == 4) return -0.5f * s;
+    return r == 3 ? -s : s;
+  }
+};
 
 }  // namespace
 
@@ -112,22 +122,8 @@ extern "C" int composite_bwd_launch(const float* feats, long long stride,
                                     float* grads, long long gstride,
                                     int n_tiles_y, int n_tiles_x, int tile,
                                     int chunk, int row_tiles, void* stream) {
-  const composite::PixelLayout lay =
-      row_tiles > 0 ? composite::panel_layout(tile, n_tiles_y, row_tiles)
-                    : composite::tiled_layout(tile, n_tiles_x);
-  if (row_tiles <= 0) row_tiles = n_tiles_x;
-  if (n_tiles_y <= 0 || row_tiles <= 0) return 0;
-  const int npx = tile * tile;
-  const size_t smem = composite::bwd_smem_bytes(chunk, npx);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  composite_bwd_kernel<<<n_tiles_y * row_tiles, npx, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  return composite::bwd_launch<Production>(
       feats, stride, offsets, grad_offsets, fwd_out, gout, grads, gstride,
-      tile, chunk, n_tiles_x, row_tiles, lay);
-  return static_cast<int>(cudaGetLastError());
+      n_tiles_y, n_tiles_x, tile, chunk, row_tiles,
+      static_cast<cudaStream_t>(stream));
 }

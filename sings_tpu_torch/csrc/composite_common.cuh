@@ -1,5 +1,6 @@
 // Per-pair alpha, termination rule, the two front-to-back walks and the
-// two output layouts, shared by composite_fwd.cu and composite_bwd.cu.
+// two output layouts, shared by composite_fwd.cu, composite_bwd.cu and
+// composite_bwd_variants.cu.
 // The backward walk stops exactly where the forward walk stopped (a
 // pair near the 1e-4 threshold must not get a gradient that its forward
 // never composited), and both layouts run the same instructions per
@@ -17,6 +18,8 @@
 // Shared-memory window layout: [row][chunk] with rows 0 mean_x |
 // 1 mean_y | 2..4 conic a, b, c | 5..7 rgb | 8 opacity.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace composite {
 
@@ -171,16 +174,53 @@ __device__ __forceinline__ void fwd_walk(float* sm,
   *T_out = T;
 }
 
-// The backward's per-pixel constants from the forward output (colour
-// f_*, final transmittance f_t) and the cotangents (g_*, g_t):
+// The backward's per-pixel inputs, read at the layout's address: the
+// colour cotangents g_*, the forward colour f_*, and the constants
 // cfg = sum_k g_k C_final_k and gtf = g_t T_final. One expression for
 // both layouts.
-__device__ __forceinline__ void pixel_grad_constants(
-    float g_r, float g_g, float g_b, float g_t, float f_r, float f_g,
-    float f_b, float f_t, float* cfg, float* gtf) {
-  *cfg = g_r * f_r + g_g * f_g + g_b * f_b;
-  *gtf = g_t * f_t;
+struct PixelGrad {
+  float g_r, g_g, g_b;
+  float f_r, f_g, f_b;
+  float cfg, gtf;
+};
+
+__device__ __forceinline__ PixelGrad pixel_grad(const float* go,
+                                                const float* fo,
+                                                long long row) {
+  PixelGrad pg;
+  pg.g_r = go[0];
+  pg.g_g = go[row];
+  pg.g_b = go[2 * row];
+  pg.f_r = fo[0];
+  pg.f_g = fo[row];
+  pg.f_b = fo[2 * row];
+  pg.cfg = pg.g_r * pg.f_r + pg.g_g * pg.f_g + pg.g_b * pg.f_b;
+  pg.gtf = go[3 * row] * fo[3 * row];
+  return pg;
 }
+
+// A pair that composites at the calling thread's pixel.
+struct Composite {
+  PairAlpha a;
+  float T;      // transmittance before the pair
+  float w;      // alpha T
+  float inv1m;  // 1 / (1 - alpha)
+};
+
+// composite_bwd's cumsum: one cotangent-weighted inclusive cumsum
+// upg = sum w gc over the pixel's walk, gc = sum_k g_k rgb_k, and
+//   dl_da = T gc - ((cfg - upg) + gtf) / (1 - alpha).
+struct WeightedCumsum {
+  float upg = 0.0f;
+  __device__ __forceinline__ float dl_da(const float* sm, int chunk, int k,
+                                         const Composite& c,
+                                         const PixelGrad& pg) {
+    const float gc = sm[5 * chunk + k] * pg.g_r + sm[6 * chunk + k] * pg.g_g +
+                     sm[7 * chunk + k] * pg.g_b;
+    upg += c.w * gc;
+    return c.T * gc - c.inv1m * ((pg.cfg - upg) + pg.gtf);
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -189,20 +229,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Backward walk of one tile's segment (see composite_bwd.cu for the
-// closed form): the same windows, flags and tile exit as fwd_walk.
-// Window c writes its (9, chunk) block of per-pair gradients at columns
-// grads + gbase + c * chunk (row stride gstride); pairs outside
+// Row r of pair k's per-warp sums, summed over the block's warps in
+// warp order.
+__device__ __forceinline__ float warps_sum(const float* red, int r, int k,
+                                           int chunk, int n_warps) {
+  float s = 0.0f;
+  for (int w = 0; w < n_warps; ++w) s += red[(w * kUsedRows + r) * chunk + k];
+  return s;
+}
+
+// Backward walk of one tile's segment: the same windows, flags and tile
+// exit as fwd_walk. The formulas come from Form (composite_bwd.cu's
+// Production, the experiments' forms of composite_bwd_variants.cu):
+//   Form::Carry    the pixel's running sums over its walk
+//   Form::terms(carry, sm, chunk, k, c, px, py, pg, v)
+//                  the nine terms v[0..8] of window pair k, which
+//                  composites at the pixel (c)
+//   Form::row(row, sm, red, chunk, k, n_warps, ox, oy)
+//                  gradient row `row` of pair k from the terms' sums
+//                  over the tile (warps_sum)
+// Everything else is common to the forms: per pair, each thread's nine
+// terms are summed over its warp with shuffles (skipped when no lane of
+// the warp composites the pair, which is most warps for small splats),
+// lane 0 keeps the warp's sums in shared memory, and after the window
+// one thread per (row, pair) combines the warps' sums in a fixed order
+// and stores the window's (9, chunk) block with coalesced stores at
+// columns grads + gbase + c * chunk (row stride gstride). Pairs outside
 // [start, end) and windows after the exit are not written. sm holds
 // kUsedRows * chunk floats, red kUsedRows * chunk per warp. Every thread
 // of the block calls it; an empty segment writes nothing.
+template <class Form>
 __device__ __forceinline__ void bwd_walk(float* sm, float* red,
                                          const float* __restrict__ feats,
                                          long long stride, int start, int end,
                                          int chunk, float ox, float oy,
-                                         float px, float py, float g_r,
-                                         float g_g, float g_b, float cfg,
-                                         float gtf, float* __restrict__ grads,
+                                         float px, float py,
+                                         const PixelGrad& pg,
+                                         float* __restrict__ grads,
                                          long long gstride, long long gbase) {
   const int p = threadIdx.x;
   const int npx = blockDim.x;
@@ -211,7 +274,8 @@ __device__ __forceinline__ void bwd_walk(float* sm, float* red,
   const int n_warps = npx / kWarp;
   const int base = (start / chunk) * chunk;
 
-  float T = 1.0f, upg = 0.0f;
+  float T = 1.0f;
+  typename Form::Carry carry{};
   int c = 0;
   for (int win = base; win < end; win += chunk, ++c) {
     if (__syncthreads_count(T >= kTEps) == 0) break;
@@ -225,29 +289,15 @@ __device__ __forceinline__ void bwd_walk(float* sm, float* red,
 #pragma unroll
       for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
       bool contrib = false;
-      PairAlpha a;
-      if (live && pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) {
+      Composite cp;
+      if (live && pair_alpha(sm, chunk, k, ox, oy, px, py, &cp.a)) {
         float t_after;
-        if (pair_composites(T, a.alpha, &t_after)) {
+        if (pair_composites(T, cp.a.alpha, &t_after)) {
           contrib = true;
-          const float w = a.alpha * T;
-          const float gc = sm[5 * chunk + k] * g_r + sm[6 * chunk + k] * g_g +
-                           sm[7 * chunk + k] * g_b;
-          upg += w * gc;
-          const float inv1m = 1.0f / (1.0f - a.alpha);
-          const float dl_da = T * gc - inv1m * ((cfg - upg) + gtf);
-          const float dl_dpow = sm[8 * chunk + k] * dl_da * a.gv;
-          const float u = dl_dpow * a.dx;
-          const float vv = dl_dpow * a.dy;
-          v[0] = u;
-          v[1] = vv;
-          v[2] = u * a.dx;
-          v[3] = u * a.dy;
-          v[4] = vv * a.dy;
-          v[5] = g_r * w;
-          v[6] = g_g * w;
-          v[7] = g_b * w;
-          v[8] = a.gv * dl_da;
+          cp.T = T;
+          cp.w = cp.a.alpha * T;
+          cp.inv1m = 1.0f / (1.0f - cp.a.alpha);
+          Form::terms(carry, sm, chunk, k, cp, px, py, pg, v);
           T = t_after;
         } else {
           live = false;
@@ -269,25 +319,8 @@ __device__ __forceinline__ void bwd_walk(float* sm, float* red,
       const int row = i / chunk;
       const int k = i - row * chunk;
       if (k < lo || k >= hi) continue;
-      float s0 = 0.0f, s1 = 0.0f;
-      const int r0 = row < 2 ? 0 : row;
-      for (int w = 0; w < n_warps; ++w) {
-        s0 += red[(w * kUsedRows + r0) * chunk + k];
-        if (row < 2) s1 += red[(w * kUsedRows + 1) * chunk + k];
-      }
-      float val;
-      if (row == 0) {
-        val = -(sm[2 * chunk + k] * s0 + sm[3 * chunk + k] * s1);
-      } else if (row == 1) {
-        val = -(sm[4 * chunk + k] * s1 + sm[3 * chunk + k] * s0);
-      } else if (row == 2 || row == 4) {
-        val = -0.5f * s0;
-      } else if (row == 3) {
-        val = -s0;
-      } else {
-        val = s0;
-      }
-      gw[row * gstride + k] = val;
+      gw[row * gstride + k] =
+          Form::row(row, sm, red, chunk, k, n_warps, ox, oy);
     }
   }
 }
@@ -297,6 +330,55 @@ __device__ __forceinline__ void bwd_walk(float* sm, float* red,
 inline size_t bwd_smem_bytes(int chunk, int npx) {
   return static_cast<size_t>(kUsedRows) * chunk * (1 + npx / kWarp) *
          sizeof(float);
+}
+
+// One CTA per tile, one thread per pixel: the pixel's inputs at the
+// layout's address, then bwd_walk<Form>.
+template <class Form>
+__global__ void bwd_kernel(const float* __restrict__ feats, long long stride,
+                           const int* __restrict__ offsets,
+                           const int* __restrict__ grad_offsets,
+                           const float* __restrict__ fwd_out,
+                           const float* __restrict__ gout,
+                           float* __restrict__ grads, long long gstride,
+                           int tile, int chunk, int n_tiles_x, int row_tiles,
+                           PixelLayout lay) {
+  extern __shared__ float smem[];
+  const TilePixel tp =
+      tile_pixel(offsets, grad_offsets, tile, n_tiles_x, row_tiles, lay);
+  const PixelGrad pg = pixel_grad(gout + tp.at, fwd_out + tp.at, lay.row);
+  bwd_walk<Form>(smem, smem + kUsedRows * chunk, feats, stride, tp.start,
+                 tp.end, chunk, static_cast<float>(tp.tx) * tile,
+                 static_cast<float>(tp.ty) * tile, static_cast<float>(tp.px),
+                 static_cast<float>(tp.py), pg, grads, gstride, tp.gbase);
+}
+
+// Launch bwd_kernel<Form> on `stream`; row_tiles 0 reads the tiled
+// layout, row_tiles > 0 the panel planes over n_tiles_y * row_tiles
+// tiles. Returns cudaGetLastError() of the launch.
+template <class Form>
+int bwd_launch(const float* feats, long long stride, const int* offsets,
+               const int* grad_offsets, const float* fwd_out,
+               const float* gout, float* grads, long long gstride,
+               int n_tiles_y, int n_tiles_x, int tile, int chunk,
+               int row_tiles, cudaStream_t stream) {
+  const PixelLayout lay = row_tiles > 0
+                              ? panel_layout(tile, n_tiles_y, row_tiles)
+                              : tiled_layout(tile, n_tiles_x);
+  if (row_tiles <= 0) row_tiles = n_tiles_x;
+  if (n_tiles_y <= 0 || row_tiles <= 0) return 0;
+  const int npx = tile * tile;
+  const size_t smem = bwd_smem_bytes(chunk, npx);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  bwd_kernel<Form><<<n_tiles_y * row_tiles, npx, smem, stream>>>(
+      feats, stride, offsets, grad_offsets, fwd_out, gout, grads, gstride,
+      tile, chunk, n_tiles_x, row_tiles, lay);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace composite

@@ -407,15 +407,10 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
 
 
-def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
-                       grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
-                       gout: torch.Tensor, *, tile: int, chunk: int,
-                       n_tiles_x: int, n_tiles_y: int, grad_cap: int,
-                       pw: int | None = None) -> torch.Tensor:
-    """Launch csrc/composite_bwd.cu on the current stream into a zeroed
-    (9, grad_cap) buffer; fwd_out and gout in tile rows, or with pw in
-    panel planes (counted as composite_bwd_panel)."""
-    name = "composite_bwd" if pw is None else "composite_bwd_panel"
+def _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout, *, tile,
+               chunk, n_tiles_x, n_tiles_y, grad_cap, pw=None) -> tuple:
+    """A backward launcher's argument checks; returns the layout's shape
+    of fwd_out and gout."""
     n_tiles = n_tiles_x * n_tiles_y
     tensors = (feats, offsets, grad_offsets, fwd_out, gout)
     if not all(x.is_cuda and x.device == feats.device for x in tensors):
@@ -434,6 +429,21 @@ def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
                              f"{x.dtype} {tuple(x.shape)}")
     if grad_cap < chunk:
         raise ValueError(f"grad_cap {grad_cap} < chunk {chunk}")
+    return shape
+
+
+def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
+                       grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
+                       gout: torch.Tensor, *, tile: int, chunk: int,
+                       n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                       pw: int | None = None) -> torch.Tensor:
+    """Launch csrc/composite_bwd.cu on the current stream into a zeroed
+    (9, grad_cap) buffer; fwd_out and gout in tile rows, or with pw in
+    panel planes (counted as composite_bwd_panel)."""
+    name = "composite_bwd" if pw is None else "composite_bwd_panel"
+    shape = _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout,
+                       tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
+                       n_tiles_y=n_tiles_y, grad_cap=grad_cap, pw=pw)
     fn = _lib("composite_bwd", _BWD_ARGTYPES)
     grads = torch.zeros((N_USED, grad_cap), dtype=torch.float32,
                         device=feats.device)

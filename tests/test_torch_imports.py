@@ -1,5 +1,6 @@
 """sings_tpu_torch stands alone: importing it and every submodule pulls
-in neither jax, optax nor sings_tpu; entry points want CUDA and say so."""
+in neither jax, optax, sings_tpu nor the JAX experiment scripts under
+scripts/; entry points want CUDA and say so."""
 import importlib.util
 import os
 import subprocess
@@ -18,7 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(sings_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "optax", "sings_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "optax", "sings_tpu",
+                                    "scripts")
+             or k.startswith("exp_"))
 print(len(names), bad)
 """
 
@@ -29,7 +32,7 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 40 and bad == "[]", res.stdout
+    assert int(n) >= 60 and bad == "[]", res.stdout
     for name in ("sings_tpu_torch.losses.photometric",
                  "sings_tpu_torch.losses.regularizers",
                  "sings_tpu_torch.ops.ssim", "sings_tpu_torch.ops.knn",
@@ -40,7 +43,14 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.losses.lpips",
                  "sings_tpu_torch.train.logging_util",
                  "sings_tpu_torch.export.ply",
-                 "sings_tpu_torch.cli.train"):
+                 "sings_tpu_torch.cli.train",
+                 "sings_tpu_torch.ops.timing",
+                 "sings_tpu_torch.ops.scan_bench",
+                 "sings_tpu_torch.ops.rasterizer.variants",
+                 "sings_tpu_torch.scripts._scene",
+                 "sings_tpu_torch.scripts.exp_bwd_moments",
+                 "sings_tpu_torch.scripts.exp_cumsum_kernel",
+                 "sings_tpu_torch.scripts.exp_bwd_variants"):
         assert importlib.util.find_spec(name) is not None, name
 
 
@@ -60,6 +70,12 @@ def test_entry_points_default_to_cuda(tmp_path):
         main(["-o", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main([f"output_path={tmp_path}"])
+    from sings_tpu_torch.scripts import (
+        exp_bwd_moments, exp_bwd_variants, exp_cumsum_kernel,
+    )
+    for script in (exp_bwd_moments, exp_bwd_variants, exp_cumsum_kernel):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
 
 
 def test_train_mode_is_a_later_slice():
