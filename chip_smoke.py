@@ -28,24 +28,30 @@ exp_bwd_variants} at their own sizes. Phases:
                 a checkpoint written from the port's init_avatar,
                 Trainer(mode="anim")
   4 kernels     composite_fwd against its plain version on frame 0's
-                real inputs and on edge scenes; the panel kernels
+                real inputs and on edge scenes; its window-entry state
+                (grad_offsets=) against the plain version's, the output
+                unchanged by it; the panel kernels and their state
                 against theirs and, bit for bit, against the tiled
                 kernels on frame 0 and on panel edge scenes (56x40 and
                 600 wide: padding sub-tiles; a saturating stack)
   5 main        animate_chunk(16 frames a chunk, 32 frames); counts
                 composite_fwd launches from 0; then the same 32 frames
                 with tpu.raster.layout=panel, equal to the tiled ones
-                (uint8, exact), counting composite_fwd_panel launches
-  6 timing      CUDA-event times of composite_fwd and its plain version,
-                and the least time the card could take for the same work
+                (uint8, exact), counting composite_fwd_panel launches;
+                neither animation writes the window-entry state
+  6 timing      CUDA-event times of composite_fwd (with and without the
+                state) and its plain version, and the least time the
+                card could take for the same work
   7 train setup config + HUMAN_COMPLEX_TRAIN_DOTLIST (the recipe's loss,
                 LR and schedule keys) + what bench.py sets, an in-memory
                 9-frame 512x512 kit (8 training frames) whose masks and
                 images come from the avatar's own seeded render,
                 Trainer(mode="train") with a 10-step decoder pre-fit
   8 kernels     composite_bwd against its plain version on the training
-                step's real frame-0 render and the loss's own cotangents,
-                and on edge scenes; then the gradients of rasterize with
+                step's real frame-0 render, its window-entry state and
+                the loss's own cotangents, and on edge scenes (a tile
+                exit included); the tile load; then the gradients of
+                rasterize with
                 respect to means, scales, quats, opacities, SH features
                 and screen_probe through the kernels against the same
                 through the plain versions
@@ -53,7 +59,8 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame, bit for bit against the tiled kernels, and the
                 rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
-                composite_fwd and composite_bwd launches from 0
+                composite_fwd and composite_bwd launches from 0, and the
+                forward launches that wrote the state (all of them)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
                 and its bound
  11 entry       the training entry point with layout=panel: the
@@ -73,14 +80,16 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame, the loss's cotangents): both panel kernels
                 against their plain versions and the tiled kernels, their
                 CUDA-event times against their plain versions' and
-                their bounds, the tiled kernels' on the same inputs; the
-                host-clock split of train()
- 13 scan        exp_cumsum_kernel.main at 4096 steps, launches counted
-                from 0; each mode's kernel against its plain version;
-                the entry point's times per step against the function's
-                bound (4 operations an element at the card's rate; one
-                SM's share beside it) and one torch.cumsum over the
-                (128, 256) block
+                their bounds, the tiled kernels' on the same inputs, the
+                forward's with the state; the tile load; the host-clock
+                split of train()
+ 13 scan        exp_cumsum_kernel.main at 4096 steps on every SM, launches
+                counted from 0; each mode's kernel against its plain
+                version with the same CTA split, at the SM count and at
+                one CTA; the entry point's times per step against the
+                function's bound (4 operations an element at the card's
+                rate) and one torch.cumsum over the (128, 256) block;
+                the times at one CTA (ms_one_cta) against one SM's share
  14 experiments exp_bwd_moments.main and exp_bwd_variants.main on the
                 bench scene (50,000 gaussians, 512x512), launches
                 counted from 0; on each bench scene every backward form
@@ -361,14 +370,23 @@ def composite_inputs(gauss, cam, kw):
                                 n_tiles_x=ntx, n_tiles_y=nty)
 
 
-def tile_load(binning) -> str:
+def tile_load(binning, chunk: int = 128) -> str:
     """Pairs per tile of a binning: the largest segment and the mean over
-    tiles that hold any (one CTA walks one tile's segment)."""
+    tiles that hold any (one forward CTA walks one tile's segment), and
+    the gradient buffer's windows (the backward's work items)."""
     seg = binning.tile_offsets[1:] - binning.tile_offsets[:-1]
     busy = seg[seg > 0].float()
     mean = float(busy.mean()) if busy.numel() else 0.0
+    wins = (binning.grad_offsets[1:] - binning.grad_offsets[:-1]) // chunk
     return (f"pairs per tile max {int(seg.max())}, mean {mean:.1f} over "
-            f"{busy.numel()} non-empty tiles")
+            f"{busy.numel()} non-empty tiles; {int(wins.sum())} windows, "
+            f"at most {int(wins.max())} in a tile")
+
+
+def used_windows(binning, chunk: int) -> int:
+    """The state's rows that belong to a tile (the kernel writes those,
+    the backward reads those): grad_offsets[T] // chunk."""
+    return int(binning.grad_offsets[-1]) // chunk
 
 
 def panel_kw(ckw: dict) -> dict:
@@ -398,34 +416,44 @@ def check_panel(name: str, feats, binning, ckw: dict, gout_planes) -> tuple:
     pkw = panel_kw(ckw)
     lay = {k: ckw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
     offs = binning.tile_offsets
-    fwd_t = K.composite_fwd_cuda(feats, offs, **ckw)
-    fwd_p = K.composite_fwd_cuda(feats, offs, **pkw)
+    cap = binning.pair_slot_capacity
+    skw = dict(grad_offsets=binning.grad_offsets, grad_cap=cap)
+    fwd_t, st_t = K.composite_fwd_cuda(feats, offs, **skw, **ckw)
+    fwd_p, st_p = K.composite_fwd_cuda(feats, offs, **skw, **pkw)
     torch.cuda.synchronize()
-    err_f = check_close(f"composite_fwd_panel {name}", fwd_p,
-                        K.composite_fwd_plain(feats, offs, **pkw))
+    want_p, want_st = K.composite_fwd_plain(feats, offs, **skw, **pkw)
+    nw = used_windows(binning, ckw["chunk"])
+    err_f = check_close(f"composite_fwd_panel {name}", fwd_p, want_p)
+    err_f = max(err_f, check_close(f"composite_fwd_panel state {name}",
+                                   st_p[:nw], want_st[:nw]))
     if not torch.equal(fwd_p, K.tiles_to_planes(fwd_t, pw=pkw["pw"],
                                                 **lay)):
         raise AssertionError(f"{name}: composite_fwd_panel is not bitwise "
                              "equal to composite_fwd relaid out")
+    if not torch.equal(st_p[:nw], st_t[:nw]):
+        raise AssertionError(f"{name}: the panel forward's state is not "
+                             "bitwise equal to the tiled forward's")
+    # the rows past the tiles' windows are never read: poison them in
+    # the tiled backward's state, which must still match the panel's
+    st_t[nw:] = float("nan")
     edge = ckw["n_tiles_x"] * ckw["tile"]
     if fwd_p.shape[2] > edge and not (
             bool((fwd_p[:3, :, edge:] == 0).all())
             and bool((fwd_p[3, :, edge:] == 1).all())):
         raise AssertionError(f"{name}: padding sub-tiles not colour 0, T 1")
     args = (feats, offs, binning.grad_offsets)
-    cap = binning.pair_slot_capacity
-    g_p = K.composite_bwd_cuda(*args, fwd_p, gout_planes,
-                                     grad_cap=cap, **pkw)
+    g_p = K.composite_bwd_cuda(*args, fwd_p, gout_planes, st_p,
+                               grad_cap=cap, **pkw)
     g_t = K.composite_bwd_cuda(*args, fwd_t, K.planes_to_tiles(
-        gout_planes, **lay).contiguous(), grad_cap=cap, **ckw)
+        gout_planes, **lay).contiguous(), st_t, grad_cap=cap, **ckw)
     torch.cuda.synchronize()
     err_b = check_bwd(f"panel {name}", g_p, K.composite_bwd_plain(
-        *args, fwd_p, gout_planes, grad_cap=cap, **pkw), binning)
+        *args, fwd_p, gout_planes, st_p, grad_cap=cap, **pkw), binning)
     if not torch.equal(g_p, g_t):
         raise AssertionError(f"{name}: composite_bwd_panel is not bitwise "
                              "equal to composite_bwd")
     log(f"[kernels] panel {name}: planes {tuple(fwd_p.shape)}, bitwise "
-        "equal to the tiled kernels (forward and backward)")
+        "equal to the tiled kernels (forward, its state and backward)")
     return err_f, err_b
 
 
@@ -508,9 +536,12 @@ def main(argv=None) -> int:
     log(f"[build] {', '.join(SOURCES)} built in {t1 - t0:.1f}s (one nvcc "
         f"each, started together); mesh_native in {time.time() - t1:.1f}s")
     for name, info in cuda_build.BUILD_LOG.items():
+        entry = ""
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {entry}: {line.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work, dev, smi, args.profile)
@@ -575,6 +606,22 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
                                              return_walked=True, **ckw)
         torch.cuda.synchronize()
         max_err = check_close("full width frame 0", got, want)
+        # the window-entry state the training step asks for
+        skw = dict(grad_offsets=binning.grad_offsets,
+                   grad_cap=binning.pair_slot_capacity)
+        got_s, st = K.composite_fwd_cuda(feats, binning.tile_offsets,
+                                         **skw, **ckw)
+        want_st = K.composite_fwd_plain(feats, binning.tile_offsets,
+                                        **skw, **ckw)[1]
+        torch.cuda.synchronize()
+        if not torch.equal(got_s, got):
+            raise AssertionError("writing the state changed the forward")
+        nw = used_windows(binning, ckw["chunk"])
+        max_err = max(max_err, check_close("full width frame 0 state",
+                                           st[:nw], want_st[:nw]))
+        log(f"[kernels] frame 0 state {tuple(st.shape)}: "
+            f"{int((st[:nw, 0].amax(dim=1) > 0).sum())} of {nw} windows "
+            f"entered, {tile_load(binning)}")
         # edge scenes
         ekw = dict(kw, max_span=8, pair_cap=None)
         g, cam = random_scene(400, 380, 500, 1, dev)
@@ -653,6 +700,9 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     if launches["composite_fwd"] != 32:
         raise AssertionError(f"composite_fwd launched "
                              f"{launches['composite_fwd']} times, not 32")
+    if any(K.STATE_WRITES.values()):
+        raise AssertionError(f"the animation wrote the window-entry state: "
+                             f"{K.STATE_WRITES}")
     d0 = np.abs(frames[0].astype(int) - plain_frame0.numpy().astype(int))
     log(f"[main] frame 0 vs plain-version render: max {d0.max()} levels, "
         f"{int((d0 > 1).sum())} values off by more than 1")
@@ -677,13 +727,36 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         raise AssertionError("panel-layout frames differ from the tiled "
                              "layout's")
     if (panel_launches["composite_fwd_panel"] != 32
-            or panel_launches["composite_fwd"] != 0):
+            or panel_launches["composite_fwd"] != 0
+            or any(K.STATE_WRITES.values())):
         raise AssertionError(f"panel animation launches {panel_launches}, "
                              "expected 32 composite_fwd_panel and 0 tiled")
 
     # ---- 6 timing at frame 0's shapes
     offs = binning.tile_offsets
     ms = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
+    ms_state = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **skw,
+                                                    **ckw))
+    ms_again = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
+    # a zero-fill of the state buffer (the wrapper leaves it unfilled:
+    # the fill and what it evicted from L2 cost 9% in a first design),
+    # and the launch alone into preallocated buffers, with and without
+    # the state
+    st_shape = K.state_shape(grad_cap=skw["grad_cap"], chunk=ckw["chunk"],
+                             tile=ckw["tile"])
+    zero_ms = cuda_ms(lambda: torch.zeros(st_shape, device=dev))
+    st_buf = torch.zeros(st_shape, device=dev)
+    out_buf = torch.empty_like(want)
+
+    def launch_only(state):
+        K._lib()(feats.data_ptr(), feats.stride(0), offs.data_ptr(),
+                 skw["grad_offsets"].data_ptr() if state else None,
+                 st_buf.data_ptr() if state else None, out_buf.data_ptr(),
+                 ckw["n_tiles_y"], ckw["n_tiles_x"], ckw["tile"],
+                 ckw["chunk"], 0, torch.cuda.current_stream().cuda_stream)
+
+    raw_ms = [cuda_ms(lambda: launch_only(x)) for x in (False, True, False,
+                                                         True)]
     plain_ms = cuda_ms(lambda: K.composite_fwd_plain(feats, offs, **ckw))
     n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
     npx = ckw["tile"] ** 2
@@ -692,22 +765,27 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    log(f"[timing] composite_fwd {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"walked pairs {walked} of {n_pairs}, bound {bound_ms:.4f} ms "
-        f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms) | {smi}")
+    log(f"[timing] composite_fwd {ms:.4f} ms ({ms_again:.4f} ms after "
+        f"the next), with the state {ms_state:.4f} ms (its zero-fill alone "
+        f"{zero_ms:.4f} ms; the launch alone without / with the state, "
+        f"twice: {', '.join(f'{t:.4f}' for t in raw_ms)} ms), plain "
+        f"{plain_ms:.3f} ms, walked pairs {walked} of {n_pairs}, bound "
+        f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)"
+        f" | {smi}")
     kernels = [{
         "name": "composite_fwd", "route": "cuda",
         "source": "sings_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "sings_tpu/ops/rasterizer/pallas_kernels.py:873",
         "launches": launches["composite_fwd"], "max_abs_err": max_err,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "ms": ms, "kernel_ms": ms, "ms_with_state": ms_state,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }]
     if profile_dir:
         profile(trainer, gs_attrs, frame0, kw, profile_dir)
-    del trainer, gs_attrs, posed, frame0, feats, binning, want, got
+    del trainer, gs_attrs, posed, frame0, feats, binning, want, got, st
+    del st_buf, out_buf
     torch.cuda.empty_cache()
     kernels.extend(run_train(work, dev, smi, profile_dir))
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
@@ -944,8 +1022,8 @@ def step_render_inputs(trainer, batch, draws):
 
 def composite_bwd_inputs(trainer, leaves, loss_of):
     """Frame 0's composite_bwd inputs as the step makes them: feats,
-    binning and forward output of the render, and the loss's own
-    cotangents of colour and transmittance, re-tiled."""
+    binning, forward output and window-entry state of the render, and
+    the loss's own cotangents of colour and transmittance, re-tiled."""
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer.api import (
         RasterConfig, _pad_tiles, image_to_tiles, prepare_composite,
@@ -964,13 +1042,15 @@ def composite_bwd_inputs(trainer, leaves, loss_of):
         feats, binning = prepare_composite(g2d, cfg)
     ntx, nty = _pad_tiles(cfg)
     ckw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty)
-    fwd_out = K.composite_fwd_cuda(feats, binning.tile_offsets, **ckw)
+    fwd_out, state = K.composite_fwd_cuda(
+        feats, binning.tile_offsets, grad_offsets=binning.grad_offsets,
+        grad_cap=binning.pair_slot_capacity, **ckw)
     color, t_final = (x.detach().requires_grad_(True)
                       for x in tiles_to_image(fwd_out, cfg))
     g_color, g_t = torch.autograd.grad(loss_of(color, t_final),
                                        [color, t_final])
     gout = image_to_tiles(g_color, g_t, cfg).contiguous()
-    return feats, binning, fwd_out, gout, ckw
+    return feats, binning, fwd_out, gout, state, ckw
 
 
 def check_bwd(name, got, want, binning) -> float:
@@ -1064,11 +1144,13 @@ def edge_scene_bwd(dev, ekw, seed: int, gauss, cam, name) -> float:
     from sings_tpu_torch.ops.rasterizer import kernels as K
 
     feats, b, ckw = composite_inputs(gauss, cam, ekw)
-    fwd = K.composite_fwd_cuda(feats, b.tile_offsets, **ckw)
+    fwd, state = K.composite_fwd_cuda(
+        feats, b.tile_offsets, grad_offsets=b.grad_offsets,
+        grad_cap=b.pair_slot_capacity, **ckw)
     gen = torch.Generator(device=dev).manual_seed(seed)
     gout = torch.randn(fwd.shape, generator=gen, device=dev)
     gout[:, 4:] = 0.0
-    args = (feats, b.tile_offsets, b.grad_offsets, fwd, gout)
+    args = (feats, b.tile_offsets, b.grad_offsets, fwd, gout, state)
     kw = dict(ckw, grad_cap=b.pair_slot_capacity)
     return check_bwd(name, K.composite_bwd_cuda(*args, **kw),
                      K.composite_bwd_plain(*args, **kw), b)
@@ -1108,10 +1190,10 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         torch.Generator(device=dev).manual_seed(SEED), batch0["mask"],
         trainer.step_cfg.weights.photometric)
     leaves, loss_of = step_render_inputs(trainer, batch0, draws0)
-    feats, binning, fwd_out, gout, ckw = composite_bwd_inputs(
+    feats, binning, fwd_out, gout, entry, ckw = composite_bwd_inputs(
         trainer, leaves, loss_of)
     bargs = (feats, binning.tile_offsets, binning.grad_offsets, fwd_out,
-             gout)
+             gout, entry)
     bkw = dict(ckw, grad_cap=binning.pair_slot_capacity)
     got = K.composite_bwd_cuda(*bargs, **bkw)
     want, walked, composited = K.composite_bwd_plain(
@@ -1228,6 +1310,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
+    if K.STATE_WRITES["composite_fwd"] != 2 * k:
+        raise AssertionError(f"the state was written {K.STATE_WRITES} "
+                             f"times in {2 * k} steps")
 
     # ---- 10 timing of composite_bwd at frame 0's shapes
     ms = cuda_ms(lambda: K.composite_bwd_cuda(*bargs, **bkw))
@@ -1265,7 +1350,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         "library_ms": None,
     }
     # ---- 11 the training entry point, 12 its timing
-    del p, b, o, state, bargs, feats, binning, fwd_out, gout
+    del p, b, o, state, bargs, feats, binning, fwd_out, gout, entry
     return [bwd_row] + run_entry(work, dev, trainer, batches, smi)
 
 
@@ -1384,7 +1469,8 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
         tr.save_ckpt = timed(tr.save_ckpt, "checkpoint",
                              lambda a, out: ckpts.append((tr.step, out)))
         held.update(tr=tr, count=count, runs0=dict(native.COLLAPSE_RUNS),
-                    before=dict(K.LAUNCHES))
+                    before=dict(K.LAUNCHES),
+                    states0=K.STATE_WRITES["composite_fwd_panel"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         result = orig_train(tr)
@@ -1392,6 +1478,8 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
         split["wall"] = time.perf_counter() - t1
         held["window"] = {name: K.LAUNCHES[name] - held["before"][name]
                           for name in K.LAUNCHES}
+        held["states"] = (K.STATE_WRITES["composite_fwd_panel"]
+                          - held["states0"])
         return result
 
     # ---- 11 main path: the CLI, launches counted from 0
@@ -1478,6 +1566,16 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     if window != want or launches != want_all:
         raise AssertionError("panel kernel launches differ from the count "
                              "the CLI run implies")
+    # only the forwards that a backward follows write the window-entry
+    # state: the steps and the refine steps, not the validation's
+    # renders under no_grad nor the exports
+    states = K.STATE_WRITES["composite_fwd_panel"]
+    log(f"[entry] forwards that wrote the state: {held['states']} in "
+        f"train(), {states} in the whole CLI call (the backward's launches: "
+        f"{want['composite_bwd_panel']})")
+    if not held["states"] == states == want["composite_bwd_panel"]:
+        raise AssertionError("the state was written by forwards that no "
+                             "backward follows, or missed by one")
 
     # the CLI's outputs
     cfg_path = os.path.join(tr.logdir, "config_train.yaml")
@@ -1535,23 +1633,24 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
         torch.Generator(device=tr.device).manual_seed(SEED), batch0["mask"],
         tr.step_cfg.weights.photometric)
     leaves, loss_of = step_render_inputs(tr, batch0, draws0)
-    feats, binning, fwd_t, gout_t, ckw = composite_bwd_inputs(tr, leaves,
-                                                              loss_of)
+    feats, binning, fwd_t, gout_t, entry, ckw = composite_bwd_inputs(
+        tr, leaves, loss_of)
     del leaves
     offs, goffs = binning.tile_offsets, binning.grad_offsets
     cap = binning.pair_slot_capacity
     pkw = panel_kw(ckw)
+    skw = dict(grad_offsets=goffs, grad_cap=cap)
     gout_p = to_planes(gout_t, ckw, 0.0)
     note_panel_errs(check_panel("train() window's frame (the loss's "
                                 "cotangents)", feats, binning, ckw, gout_p))
     # the backward's experiment forms on this frame (phase 14's checks)
     forms_on_frame("phase 12 trained-avatar frame",
-                   (feats, offs, goffs, fwd_t, gout_t),
+                   (feats, offs, goffs, fwd_t, gout_t, entry),
                    dict(ckw, grad_cap=cap), binning, smi)
-    fwd_p = K.composite_fwd_cuda(feats, offs, **pkw)
+    fwd_p, entry_p = K.composite_fwd_cuda(feats, offs, **skw, **pkw)
     _, walked, composited = K.composite_bwd_plain(
-        feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, return_counts=True,
-        **pkw)
+        feats, offs, goffs, fwd_p, gout_p, entry_p, grad_cap=cap,
+        return_counts=True, **pkw)
     hp, wp = fwd_p.shape[1:]
     n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
     npx = ckw["tile"] ** 2
@@ -1569,9 +1668,11 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
              4 * (9 * walked + (n_tiles + 1) + 4 * hp * wp)),
             ("composite_bwd_panel",
              lambda: K.composite_bwd_cuda(
-                 feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, **pkw),
+                 feats, offs, goffs, fwd_p, gout_p, entry_p, grad_cap=cap,
+                 **pkw),
              lambda: K.composite_bwd_plain(
-                 feats, offs, goffs, fwd_p, gout_p, grad_cap=cap, **pkw),
+                 feats, offs, goffs, fwd_p, gout_p, entry_p, grad_cap=cap,
+                 **pkw),
              OPS_PER_PAIR_PIXEL_BWD * walked * npx
              + OPS_PER_COMPOSITE_BWD * composited,
              4 * (9 * walked + 2 * (n_tiles + 1) + 2 * 4 * hp * wp
@@ -1597,10 +1698,18 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
         })
+    # the forward as the training step runs it, with the state, in turns
+    # with the forward without it
+    turns = [cuda_ms(lambda: K.composite_fwd_cuda(
+        feats, offs, **(skw if i % 2 == 0 else {}), **pkw))
+        for i in range(4)]
+    rows[0]["ms_with_state"] = turns[0]
     tiled_f = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
     tiled_b = cuda_ms(lambda: K.composite_bwd_cuda(
-        feats, offs, goffs, fwd_t, gout_t, grad_cap=cap, **ckw))
-    log(f"[timing] for comparison, the tiled layout on the same inputs: "
+        feats, offs, goffs, fwd_t, gout_t, entry, grad_cap=cap, **ckw))
+    log(f"[timing] composite_fwd_panel in turns with / without / with / "
+        f"without the state: {', '.join(f'{t:.4f}' for t in turns)} ms; "
+        f"for comparison, the tiled layout on the same inputs: "
         f"composite_fwd {tiled_f:.4f} ms, composite_bwd {tiled_b:.4f} ms "
         f"| {smi}")
     wall = split["wall"]
@@ -1754,16 +1863,17 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
 # the experiment kernels (phases 13-14): sings_tpu_torch.scripts
 
 # row 6 against its plain version: each step's row sums are taken in
-# another order (both accumulate the steps one after another), within
-# this share of the largest output
+# another order (tri and tri3 on the tensor cores, TF32 hi + lo parts;
+# both accumulate the steps in float64, one after another, in the same
+# CTA split), within this share of the largest output
 SCAN_RTOL = 1e-5
 # fp32 operations per element and step that the function needs, in
 # every mode: the scaled copy la (1), the running sum down the rows (1),
 # minus la for the exclusive sum (1) and the row sum (1), as the cumsum
 # mode does them (csrc/chunk_scan_bench.cu; tri and tri3 multiply by the
-# whole 0/1 triangle, 258 and 774). The bound takes them at the card's
-# fp32 rate; one CTA can use one SM of 132, whose share is reported
-# beside it (bound_one_sm_ms)
+# 0/1 triangle on the tensor cores). The bound takes them at the card's
+# fp32 rate (the steps spread over every SM); the run on one CTA
+# (ms_one_cta) is held to one SM's share of it (bound_one_sm_ms)
 SCAN_FN_OPS = 4
 H100_SMS = 132
 # the backward forms: every form computes composite_bwd's gradients, and
@@ -1845,24 +1955,32 @@ def forms_on_frame(name: str, args, kw: dict, binning, smi: str) -> None:
 
 
 def run_scan(dev, smi: str) -> list:
-    """Phase 13: the entry point exp_cumsum_kernel at 4096 steps, its
-    launches counted from 0; each mode's kernel against its plain
-    version; times per step (one window's scan) against the bound and
-    one torch.cumsum over the block. Returns row 6's kernels-line rows,
-    one per mode, in ms per step."""
+    """Phase 13: the entry point exp_cumsum_kernel at 4096 steps on
+    every SM (its default), its launches counted from 0; each mode's
+    kernel against its plain version with the same CTA split, at the SM
+    count and at one CTA; times per step against the bound and one
+    torch.cumsum over the block, and the entry point's times at one CTA
+    (ms_one_cta) against one SM's share. Returns row 6's kernels-line
+    rows, one per mode, in ms per step."""
     from sings_tpu_torch.device import set_full_float32
     from sings_tpu_torch.ops import scan_bench as SB
     from sings_tpu_torch.scripts import exp_cumsum_kernel
 
     set_full_float32()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     SB.reset_launches()
     torch.cuda.synchronize()
     res = exp_cumsum_kernel.main(["--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(SB.MODE_LAUNCHES)
     steps = res["steps"]
-    log(f"[scan] exp_cumsum_kernel.main: {steps} steps, launches "
-        f"{launches} ({SB.LAUNCHES['chunk_scan_bench']} in all)")
+    log(f"[scan] exp_cumsum_kernel.main: {steps} steps on {res['ctas']} "
+        f"CTAs, launches {launches} ({SB.LAUNCHES['chunk_scan_bench']} in "
+        "all)")
+    if res["ctas"] != sms:
+        raise AssertionError(f"the entry point ran {res['ctas']} CTAs, not "
+                             f"the card's {sms} SMs")
+    one = exp_cumsum_kernel.main(["--device", "cuda", "--ctas", "1"])
     x = torch.from_numpy(np.random.RandomState(SEED).randn(
         SB.CHUNK, SB.NPX).astype(np.float32)).to(dev)
     lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0), n=200, warm=10)
@@ -1870,37 +1988,46 @@ def run_scan(dev, smi: str) -> list:
     for mode in SB.MODES:
         if launches[mode] == 0:
             raise AssertionError(f"chunk_scan_bench {mode} never launched")
-        got = SB.chunk_scan_bench_cuda(x, mode=mode)
-        want = SB.chunk_scan_bench_plain(x, mode=mode)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        if not bool(torch.isfinite(got).all()) or rel > SCAN_RTOL:
-            raise AssertionError(f"chunk_scan_bench {mode} disagrees with "
-                                 f"its plain version: {rel:.3e}")
-        plain_ms = cuda_ms(lambda: SB.chunk_scan_bench_plain(x, mode=mode),
-                           n=2, warm=1)
+        errs = {}
+        for ctas in (sms, 1):
+            got = SB.chunk_scan_bench_cuda(x, mode=mode, ctas=ctas)
+            want = SB.chunk_scan_bench_plain(x, mode=mode, ctas=ctas)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            if not bool(torch.isfinite(got).all()) or rel > SCAN_RTOL:
+                raise AssertionError(f"chunk_scan_bench {mode} at {ctas} "
+                                     f"CTAs disagrees with its plain "
+                                     f"version: {rel:.3e}")
+            errs[ctas] = (err, rel)
+        plain_ms = cuda_ms(lambda: SB.chunk_scan_bench_plain(
+            x, mode=mode, ctas=sms), n=2, warm=1)
         ms = res["modes"][mode]["ms"]
+        ms_one = one["modes"][mode]["ms"]
         ops = SCAN_FN_OPS * SB.CHUNK * SB.NPX * steps
         ops_ms = ops / H100_FP32_FLOPS * 1e3
         bytes_ms = 4 * (SB.CHUNK * SB.NPX + SB.NPX) / H100_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         one_sm_ms = ops / (H100_FP32_FLOPS / H100_SMS) * 1e3
-        log(f"[scan] {mode}: {ms:.4f} ms for {steps} steps "
-            f"({1e3 * ms / steps:.4f} us a step), plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.6f} ms (the card; one SM's share "
-            f"{one_sm_ms:.4f} ms), torch.cumsum of the block "
-            f"{1e3 * lib_ms:.4f} us, max_abs_err {err:.3e} (rel "
-            f"{rel:.2e}) | {smi}")
+        log(f"[scan] {mode}: {ms:.4f} ms for {steps} steps on {sms} CTAs "
+            f"({1e3 * ms / steps:.6f} us a step), on one CTA {ms_one:.4f} "
+            f"ms ({1e3 * ms_one / steps:.4f} us a step), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms (the card; one "
+            f"SM's share {one_sm_ms:.4f} ms), torch.cumsum of the block "
+            f"{1e3 * lib_ms:.4f} us, max_abs_err {errs[sms][0]:.3e} (rel "
+            f"{errs[sms][1]:.2e}; one CTA {errs[1][0]:.3e}, rel "
+            f"{errs[1][1]:.2e}) | {smi}")
         rows.append({
             "name": f"chunk_scan_bench[{mode}] (ms per step)",
             "route": "cuda",
             "source": "sings_tpu_torch/csrc/chunk_scan_bench.cu",
             "replaces": "scripts/exp_cumsum_kernel.py:73",
-            "launches": launches[mode], "max_abs_err": err,
+            "launches": launches[mode],
+            "max_abs_err": max(e[0] for e in errs.values()),
             "ms": ms / steps, "plain_ms": plain_ms / steps,
             "bound_ms": bound_ms / steps,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ms_one_cta": ms_one / steps,
             "bound_one_sm_ms": one_sm_ms / steps,
             "library_ms": lib_ms,
         })

@@ -15,6 +15,8 @@
 //   fwd_out      composite_fwd's output in either layout (rows 0..3 read)
 //   gout         cotangents in the same layout (rows 0..2 colour,
 //                3 T_final; zero outside the image in the panel planes)
+//   state        (grad_cap / chunk, 4, tile*tile) f32: composite_fwd's
+//                window-entry T and colour sums (composite_common.cuh)
 //   grads        (9, gstride) f32, zero-filled by the wrapper: window c of
 //                tile t writes columns grad_offsets[t] + c * chunk + k
 //                rows 0 d_mean_x | 1 d_mean_y | 2..4 d_conic a, b, c |
@@ -35,22 +37,34 @@
 // as if alpha = op G even where the 0.99 clamp was active, the TPU
 // kernel's (and the CUDA reference's) quirk, reproduced on purpose.
 //
-// Design: one CTA per tile, one thread per pixel, each reading its 8
-// inputs at the layout's address (the TPU panel kernel's selection-
-// matmul relayout and chunk-0 prefetch are not needed); each window's 9
-// used feature rows are staged in shared memory as in the forward. The
-// constants cfg and gtf come from one expression for both layouts (the
-// TPU's two layouts differ there by ~1 ulp), so with -fmad=false the
-// layouts' gradients agree bit for bit. Padding sub-tiles of the panel
-// layout walk an empty segment and write nothing. The walk, the warp
-// shuffles and the fixed-order cross-warp sums are composite_common.cuh's
-// bwd_walk, shared with the experiments' forms of
-// composite_bwd_variants.cu; this file holds the form (Production): the
-// per-pixel terms and how a pair's nine rows come from their tile sums.
-// Every sum runs in a fixed order, so the output is the same from run
-// to run. Slots the kernel does not write (head and tail pairs outside
-// the segment, windows after the tile's exit, the spare window) keep
-// the wrapper's zeros.
+// Design: the windows of a tile are independent work items. The walk
+// of window c needs each pixel's T and colour sums at the window's
+// entry, which depend on every earlier window; composite_fwd computes
+// exactly those, in the same instructions, and hands them over in
+// `state`. So a persistent grid of a few CTAs per SM (one thread per
+// pixel) loops over the gradient buffer's windows instead of one CTA
+// walking a whole tile's segment: the critical path falls from the
+// longest segment (hundreds of pairs) to one window of at most `chunk`.
+// A CTA finds its window's tile by binary search in grad_offsets, reads
+// each pixel's 8 inputs at the layout's address and its entry state,
+// skips a window with no pixel at T >= 1e-4 (those after the tile's
+// exit hold T = 0), and copies the next window's 9 feature rows with
+// cp.async into the other half of a double buffer while it walks this
+// one. Per pair, a warp with a compositing lane sums its nine terms with
+// shuffles and marks the pair in its mask; the write-out adds only the
+// marked warps, in warp order (the zeros it skips change no sum). T and
+// the flags are bit for bit the forward's; the cumsum carry upg starts
+// from g . acc, the forward's sums reassociated. The constants cfg and
+// gtf come from one expression for both layouts (the TPU's two layouts
+// differ there by ~1 ulp), so with -fmad=false the layouts' gradients
+// agree bit for bit. The window loop, staging, shuffles and write-out
+// are composite_common.cuh's bwd_kernel, shared with the experiments'
+// forms of composite_bwd_variants.cu; this file holds the form
+// (Production): the per-pixel terms and how a pair's nine rows come from
+// their tile sums. Every sum runs in a fixed order, so the output is the
+// same from run to run. Slots the kernel does not write (head and tail
+// pairs outside the segment, windows after the tile's exit, the spare
+// window) keep the wrapper's zeros.
 //
 // Bound on the H100: 19 fp32 operations per walked pair-pixel (the
 // forward's 16 for alpha, 3 for the flag) plus 34 per pair-pixel that
@@ -59,8 +73,7 @@
 // the forward output and cotangents and the gradient buffer against
 // 3.35 TB/s; at the avatar's pair density the operations bound. The
 // shuffle tree adds 45 shuffles per pair and warp that composites it;
-// moving the reduction onto fewer lanes (or a per-pair atomics layout)
-// is later work.
+// the (chunk, npx) x (npx, 9) tensor-core reduction is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +82,7 @@
 
 namespace {
 
-// The rasterizer's form of composite_common.cuh's bwd_walk: one
+// The rasterizer's form of composite_common.cuh's bwd_kernel: one
 // cotangent-weighted cumsum, per-pixel terms with the u/v CSE
 // (u = dl_dpow dx, v = dl_dpow dy), the conic applied per pair.
 struct Production {
@@ -94,17 +107,16 @@ struct Production {
     v[8] = c.a.gv * dl_da;
   }
 
-  __device__ __forceinline__ static float row(int r, const float* sm,
-                                              const float* red, int chunk,
-                                              int k, int n_warps, float ox,
-                                              float oy) {
+  __device__ __forceinline__ static float row(
+      int r, const float* sm, const composite::WarpSums& sums, int chunk,
+      int k, float ox, float oy) {
     if (r < 2) {
-      const float su = composite::warps_sum(red, 0, k, chunk, n_warps);
-      const float sv = composite::warps_sum(red, 1, k, chunk, n_warps);
+      const float su = sums(0, k);
+      const float sv = sums(1, k);
       return r == 0 ? -(sm[2 * chunk + k] * su + sm[3 * chunk + k] * sv)
                     : -(sm[4 * chunk + k] * sv + sm[3 * chunk + k] * su);
     }
-    const float s = composite::warps_sum(red, r, k, chunk, n_warps);
+    const float s = sums(r, k);
     if (r == 2 || r == 4) return -0.5f * s;
     return r == 3 ? -s : s;
   }
@@ -113,17 +125,18 @@ struct Production {
 }  // namespace
 
 // Launch on `stream`; row_tiles 0 reads the tiled layout, row_tiles > 0
-// the panel planes over n_tiles_y * row_tiles tiles. Returns
-// cudaGetLastError() of the launch.
+// the panel planes of padded tile rows of row_tiles tiles. width: the
+// columns of feats. Returns the first CUDA error of the launch.
 extern "C" int composite_bwd_launch(const float* feats, long long stride,
-                                    const int* offsets,
+                                    int width, const int* offsets,
                                     const int* grad_offsets,
                                     const float* fwd_out, const float* gout,
-                                    float* grads, long long gstride,
-                                    int n_tiles_y, int n_tiles_x, int tile,
-                                    int chunk, int row_tiles, void* stream) {
+                                    const float* state, float* grads,
+                                    long long gstride, int n_tiles_y,
+                                    int n_tiles_x, int tile, int chunk,
+                                    int row_tiles, void* stream) {
   return composite::bwd_launch<Production>(
-      feats, stride, offsets, grad_offsets, fwd_out, gout, grads, gstride,
-      n_tiles_y, n_tiles_x, tile, chunk, row_tiles,
+      feats, stride, width, offsets, grad_offsets, fwd_out, gout, state,
+      grads, gstride, n_tiles_y, n_tiles_x, tile, chunk, row_tiles,
       static_cast<cudaStream_t>(stream));
 }

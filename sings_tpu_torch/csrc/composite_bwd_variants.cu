@@ -9,7 +9,7 @@
 // rows 0 d_mean_x | 1 d_mean_y | 2..4 d_conic a, b, c | 5..7 d_rgb |
 // 8 d_opacity.
 //
-// One form template (Variant) for composite_common.cuh's bwd_walk,
+// One form template (Variant) for composite_common.cuh's bwd_kernel,
 // three choices (the launch form in brackets):
 //   Cumsum       PerChannelCumsum: the inclusive cumsums of w r, w g,
 //                w b per channel, dl_da = sum_k g_k (c_k T - (C_k -
@@ -30,12 +30,13 @@
 // instead of three multiply-adds, and here both are three
 // multiply-adds. The TPU kernels' (chunk, npx) @ (npx, 8) moment
 // product is nine per-pixel products summed over the tile here, by
-// bwd_walk's warp shuffles and fixed-order cross-warp sums; no library
+// bwd_kernel's warp shuffles and fixed-order cross-warp sums; no library
 // call.
 //
-// Design: composite_bwd.cu's kernel, walk, reduction and write-out
-// (composite_common.cuh's bwd_kernel, bwd_walk and bwd_launch), so every
-// form walks exactly the pairs that composite_bwd walks, and the forms
+// Design: composite_bwd.cu's kernel, window loop, reduction and write-out
+// (composite_common.cuh's bwd_kernel and bwd_launch), so every
+// form walks exactly the windows and pairs that composite_bwd walks,
+// from the same window-entry state, and the forms
 // and composite_bwd differ only in their formulas: the nine per-pixel
 // terms (the nine rows' pixel terms, or the six moment terms and three
 // colour terms) and how a pair's rows come from their sums over the
@@ -63,11 +64,16 @@ namespace {
 
 using composite::Composite;
 using composite::PixelGrad;
-using composite::warps_sum;
+using composite::WarpSums;
 
-// v1's cumsum: three per-channel inclusive cumsums up_k = sum w rgb_k.
+// v1's cumsum: three per-channel inclusive cumsums up_k = sum w rgb_k,
+// at a window's entry the forward's colour sums (the same sums in the
+// same order, bit for bit).
 struct PerChannelCumsum {
-  float up_r = 0.0f, up_g = 0.0f, up_b = 0.0f;
+  float up_r, up_g, up_b;
+  __device__ __forceinline__ PerChannelCumsum(float acc_r, float acc_g,
+                                              float acc_b, const PixelGrad&)
+      : up_r(acc_r), up_g(acc_g), up_b(acc_b) {}
   __device__ __forceinline__ float dl_da(const float* sm, int chunk, int k,
                                          const Composite& c,
                                          const PixelGrad& pg) {
@@ -126,12 +132,12 @@ struct Variant {
   // M00..M02 (sums 0..5) and colour sums (6..8) combined with the pair's
   // tile-local mean (mx, my) and conic.
   __device__ __forceinline__ static float row(int r, const float* sm,
-                                              const float* red, int chunk,
-                                              int k, int n_warps, float ox,
+                                              const WarpSums& sums,
+                                              int chunk, int k, float ox,
                                               float oy) {
-    if (!kMoments) return warps_sum(red, r, k, chunk, n_warps);
-    if (r >= 5 && r < 8) return warps_sum(red, r + 1, k, chunk, n_warps);
-    const float m00 = warps_sum(red, 0, k, chunk, n_warps);
+    if (!kMoments) return sums(r, k);
+    if (r >= 5 && r < 8) return sums(r + 1, k);
+    const float m00 = sums(0, k);
     if (r == 8) {
       const float op = sm[8 * chunk + k];
       if (kRow5Guard) return op > 1e-12f ? m00 / fmaxf(op, 1e-12f) : 0.0f;
@@ -140,24 +146,24 @@ struct Variant {
     const float mx = sm[k] - ox;
     const float my = sm[chunk + k] - oy;
     if (r < 2) {
-      const float ex = mx * m00 - warps_sum(red, 1, k, chunk, n_warps);
-      const float ey = my * m00 - warps_sum(red, 2, k, chunk, n_warps);
+      const float ex = mx * m00 - sums(1, k);
+      const float ey = my * m00 - sums(2, k);
       return r == 0 ? -(sm[2 * chunk + k] * ex + sm[3 * chunk + k] * ey)
                     : -(sm[4 * chunk + k] * ey + sm[3 * chunk + k] * ex);
     }
     if (r == 2) {
-      const float m10 = warps_sum(red, 1, k, chunk, n_warps);
-      const float m20 = warps_sum(red, 3, k, chunk, n_warps);
+      const float m10 = sums(1, k);
+      const float m20 = sums(3, k);
       return -0.5f * (mx * mx * m00 - 2.0f * mx * m10 + m20);
     }
     if (r == 3) {
-      const float m10 = warps_sum(red, 1, k, chunk, n_warps);
-      const float m01 = warps_sum(red, 2, k, chunk, n_warps);
-      const float m11 = warps_sum(red, 4, k, chunk, n_warps);
+      const float m10 = sums(1, k);
+      const float m01 = sums(2, k);
+      const float m11 = sums(4, k);
       return -(mx * my * m00 - mx * m01 - my * m10 + m11);
     }
-    const float m01 = warps_sum(red, 2, k, chunk, n_warps);
-    const float m02 = warps_sum(red, 5, k, chunk, n_warps);
+    const float m01 = sums(2, k);
+    const float m02 = sums(5, k);
     return -0.5f * (my * my * m00 - 2.0f * my * m01 + m02);
   }
 };
@@ -170,32 +176,29 @@ using V4 = Variant<composite::WeightedCumsum, true, false>;
 }  // namespace
 
 // Launch form `form` on `stream` (tiled layout): 0 moments
-// (composite_bwd_moments), 1 v1, 2 v3, 3 v4 (and v2). Returns
-// cudaGetLastError() of the launch.
+// (composite_bwd_moments), 1 v1, 2 v3, 3 v4 (and v2). Returns the
+// first CUDA error of the launch.
 extern "C" int composite_bwd_variants_launch(
-    const float* feats, long long stride, const int* offsets,
+    const float* feats, long long stride, int width, const int* offsets,
     const int* grad_offsets, const float* fwd_out, const float* gout,
-    float* grads, long long gstride, int n_tiles_y, int n_tiles_x, int tile,
-    int chunk, int form, void* stream) {
+    const float* state, float* grads, long long gstride, int n_tiles_y,
+    int n_tiles_x, int tile, int chunk, int form, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define COMPOSITE_BWD_FORM(F)                                              \
+  composite::bwd_launch<F>(feats, stride, width, offsets, grad_offsets,    \
+                           fwd_out, gout, state, grads, gstride, n_tiles_y, \
+                           n_tiles_x, tile, chunk, 0, s)
   switch (form) {
     case 0:
-      return composite::bwd_launch<Moments>(
-          feats, stride, offsets, grad_offsets, fwd_out, gout, grads,
-          gstride, n_tiles_y, n_tiles_x, tile, chunk, 0, s);
+      return COMPOSITE_BWD_FORM(Moments);
     case 1:
-      return composite::bwd_launch<V1>(
-          feats, stride, offsets, grad_offsets, fwd_out, gout, grads,
-          gstride, n_tiles_y, n_tiles_x, tile, chunk, 0, s);
+      return COMPOSITE_BWD_FORM(V1);
     case 2:
-      return composite::bwd_launch<V3>(
-          feats, stride, offsets, grad_offsets, fwd_out, gout, grads,
-          gstride, n_tiles_y, n_tiles_x, tile, chunk, 0, s);
+      return COMPOSITE_BWD_FORM(V3);
     case 3:
-      return composite::bwd_launch<V4>(
-          feats, stride, offsets, grad_offsets, fwd_out, gout, grads,
-          gstride, n_tiles_y, n_tiles_x, tile, chunk, 0, s);
+      return COMPOSITE_BWD_FORM(V4);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef COMPOSITE_BWD_FORM
 }

@@ -15,6 +15,18 @@
 // composites while T * (1 - alpha) >= 1e-4; the first that fails ends
 // the pixel's walk for the rest of its chunk-aligned window.
 //
+// Window-entry state: the forward can store, at the top of window c of
+// tile t (before the tile-exit test), each pixel's transmittance T and
+// colour sums acc_r, acc_g, acc_b in row (g, 0..3) of a (grad_cap /
+// chunk, 4, tile*tile) buffer, g = grad_offsets[t] / chunk + c: the
+// window numbering of the gradient buffer. With it the backward's
+// windows are independent work items (bwd_kernel). At a tile exit the
+// forward writes zeros to the tile's remaining windows, so every window
+// below grad_offsets[T] / chunk, all that the backward reads, is
+// written, and a window the walk never reached holds T = 0 and is
+// skipped, as the walk's exit would skip it; the rows past those are
+// left as they were (the wrapper does not zero-fill the buffer).
+//
 // Shared-memory window layout: [row][chunk] with rows 0 mean_x |
 // 1 mean_y | 2..4 conic a, b, c | 5..7 rgb | 8 opacity.
 #pragma once
@@ -138,19 +150,36 @@ __device__ __forceinline__ void stage_window(float* sm,
 // Every thread of the block calls it (block barriers inside); an empty
 // segment (start == end) leaves colour 0 and T = 1. A tile stops once
 // every pixel has T < 1e-4 (__syncthreads_count), the TPU's per-tile
-// while-loop exit.
+// while-loop exit. state: null, or the pixel's entry-state slot of the
+// tile's first window (rows 0..3 npx floats apart, windows 4 * npx);
+// the windows after an exit get zeros.
 __device__ __forceinline__ void fwd_walk(float* sm,
                                          const float* __restrict__ feats,
                                          long long stride, int start, int end,
                                          int chunk, float ox, float oy,
                                          float px, float py, float* rgb,
-                                         float* T_out) {
+                                         float* T_out,
+                                         float* __restrict__ state,
+                                         int npx) {
   const int base = (start / chunk) * chunk;
   float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int win = base; win < end; win += chunk) {
+    if (state) {
+      float* s = state + static_cast<long long>((win - base) / chunk) * 4 * npx;
+      s[0] = T;
+      s[npx] = acc_r;
+      s[2 * npx] = acc_g;
+      s[3 * npx] = acc_b;
+    }
     // also the barrier that keeps the previous window's reads ahead of
     // this window's stores
-    if (__syncthreads_count(T >= kTEps) == 0) break;
+    if (__syncthreads_count(T >= kTEps) == 0) {
+      for (int w = win + chunk; state && w < end; w += chunk) {
+        float* s = state + static_cast<long long>((w - base) / chunk) * 4 * npx;
+        s[0] = s[npx] = s[2 * npx] = s[3 * npx] = 0.0f;
+      }
+      break;
+    }
     stage_window(sm, feats, stride, win, start, end, chunk);
     __syncthreads();
     const int lo = max(start - win, 0);
@@ -210,8 +239,13 @@ struct Composite {
 // composite_bwd's cumsum: one cotangent-weighted inclusive cumsum
 // upg = sum w gc over the pixel's walk, gc = sum_k g_k rgb_k, and
 //   dl_da = T gc - ((cfg - upg) + gtf) / (1 - alpha).
+// At a window's entry upg = g_r acc_r + g_g acc_g + g_b acc_b from the
+// forward's colour sums: the same sum, reassociated.
 struct WeightedCumsum {
-  float upg = 0.0f;
+  float upg;
+  __device__ __forceinline__ WeightedCumsum(float acc_r, float acc_g,
+                                            float acc_b, const PixelGrad& pg)
+      : upg(pg.g_r * acc_r + pg.g_g * acc_g + pg.g_b * acc_b) {}
   __device__ __forceinline__ float dl_da(const float* sm, int chunk, int k,
                                          const Composite& c,
                                          const PixelGrad& pg) {
@@ -229,155 +263,270 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Row r of pair k's per-warp sums, summed over the block's warps in
-// warp order.
-__device__ __forceinline__ float warps_sum(const float* red, int r, int k,
-                                           int chunk, int n_warps) {
-  float s = 0.0f;
-  for (int w = 0; w < n_warps; ++w) s += red[(w * kUsedRows + r) * chunk + k];
-  return s;
+// A window's per-warp sums: red holds kUsedRows * chunk floats per warp,
+// mask one bit per (warp, pair), set where a lane of the warp
+// composited the pair (only then did the warp store its sums). (r, k)
+// is row r of pair k summed over the set warps in warp order: the
+// warps left out hold exact zeros, whose sum it equals bit for bit.
+struct WarpSums {
+  const float* red;
+  const unsigned* mask;
+  int chunk, n_warps, words;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    float s = 0.0f;
+    for (int w = 0; w < n_warps; ++w)
+      if ((mask[w * words + (k >> 5)] >> (k & 31)) & 1u)
+        s += red[(w * kUsedRows + r) * chunk + k];
+    return s;
+  }
+};
+
+// cp.async (sm_80+): a 16-byte copy from global to shared memory that
+// bypasses the registers; src_bytes below 16 fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
 }
 
-// Backward walk of one tile's segment: the same windows, flags and tile
-// exit as fwd_walk. The formulas come from Form (composite_bwd.cu's
-// Production, the experiments' forms of composite_bwd_variants.cu):
-//   Form::Carry    the pixel's running sums over its walk
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start copying the window [win, win + chunk) of the 9 used feature rows
+// into sm ([row][chunk]) in 16-byte pieces (feats 16-byte aligned, its
+// row stride and chunk multiples of 4 floats: the wrapper checks);
+// columns at or past `width` read zero. Pairs outside the tile's segment
+// are copied as they are: the walk's [lo, hi) never reads them.
+// Completes at the caller's cp_async_wait; every thread of the block
+// calls it.
+__device__ __forceinline__ void stage_window_async(
+    float* sm, const float* __restrict__ feats, long long stride, int width,
+    int win, int chunk) {
+  const int per_row = chunk / 4;
+  for (int i = threadIdx.x; i < kUsedRows * per_row; i += blockDim.x) {
+    const int row = i / per_row;
+    const int q = 4 * (i - row * per_row);
+    const int n = min(max(width - (win + q), 0), 4);
+    const float* src = feats + row * stride + (n > 0 ? win + q : 0);
+    cp_async16(sm + row * chunk + q, src, 4 * n);
+  }
+}
+
+// Window g of the gradient buffer: its tile t (the last with
+// grad_offsets[t] <= g * chunk, found by binary search), the window's
+// first pair `win` and the walk's range [lo, hi) of the tile's segment.
+struct Window {
+  int t, win, lo, hi;
+};
+
+__device__ __forceinline__ Window window_at(int g, const int* offsets,
+                                            const int* grad_offsets,
+                                            int n_tiles, int chunk) {
+  const int slot = g * chunk;
+  int lo = 0, hi = n_tiles;  // grad_offsets[lo] <= slot < grad_offsets[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (__ldg(&grad_offsets[mid]) <= slot) lo = mid; else hi = mid;
+  }
+  Window w;
+  w.t = lo;
+  const int start = __ldg(&offsets[lo]);
+  const int end = __ldg(&offsets[lo + 1]);
+  w.win = (start / chunk) * chunk + (slot - __ldg(&grad_offsets[lo]));
+  w.lo = max(start - w.win, 0);
+  w.hi = min(end - w.win, chunk);
+  return w;
+}
+
+// The backward, one window at a time. The formulas come from Form
+// (composite_bwd.cu's Production, the experiments' forms of
+// composite_bwd_variants.cu):
+//   Form::Carry(acc_r, acc_g, acc_b, pg)
+//                  the pixel's running sums at the window's entry, from
+//                  the forward's colour sums there
 //   Form::terms(carry, sm, chunk, k, c, px, py, pg, v)
 //                  the nine terms v[0..8] of window pair k, which
 //                  composites at the pixel (c)
-//   Form::row(row, sm, red, chunk, k, n_warps, ox, oy)
+//   Form::row(row, sm, sums, chunk, k, ox, oy)
 //                  gradient row `row` of pair k from the terms' sums
-//                  over the tile (warps_sum)
-// Everything else is common to the forms: per pair, each thread's nine
-// terms are summed over its warp with shuffles (skipped when no lane of
-// the warp composites the pair, which is most warps for small splats),
-// lane 0 keeps the warp's sums in shared memory, and after the window
-// one thread per (row, pair) combines the warps' sums in a fixed order
-// and stores the window's (9, chunk) block with coalesced stores at
-// columns grads + gbase + c * chunk (row stride gstride). Pairs outside
-// [start, end) and windows after the exit are not written. sm holds
-// kUsedRows * chunk floats, red kUsedRows * chunk per warp. Every thread
-// of the block calls it; an empty segment writes nothing.
+//                  over the tile (WarpSums)
+// Everything else is common to the forms. A persistent grid walks the
+// windows g = blockIdx.x, + gridDim.x, .. < grad_offsets[T] / chunk;
+// a CTA finds the window's tile (window_at), reads each pixel's entry
+// T and sums from `state` and skips the window when no pixel has
+// T >= 1e-4 (a window after the tile's exit holds T = 0). The next
+// window's feature rows are copied with cp.async into the other half of
+// a double buffer while this one is walked. In the walk, each pair's
+// nine terms are summed over the warp with shuffles where a lane of the
+// warp composites it (__any_sync), lane 0 then keeps the warp's sums in
+// shared memory and sets the warp's bit of the pair; after the window
+// one thread per (row, pair) adds the set warps' sums in warp order and
+// stores the window's (9, chunk) block with coalesced stores at columns
+// grads + g * chunk (row stride gstride). Pairs outside the walk's
+// [lo, hi) and skipped windows are not written.
 template <class Form>
-__device__ __forceinline__ void bwd_walk(float* sm, float* red,
-                                         const float* __restrict__ feats,
-                                         long long stride, int start, int end,
-                                         int chunk, float ox, float oy,
-                                         float px, float py,
-                                         const PixelGrad& pg,
-                                         float* __restrict__ grads,
-                                         long long gstride, long long gbase) {
+__global__ void bwd_kernel(const float* __restrict__ feats, long long stride,
+                           int width,
+                           const int* __restrict__ offsets,
+                           const int* __restrict__ grad_offsets, int n_tiles,
+                           const float* __restrict__ fwd_out,
+                           const float* __restrict__ gout,
+                           const float* __restrict__ state,
+                           float* __restrict__ grads, long long gstride,
+                           int tile, int chunk, int n_tiles_x,
+                           PixelLayout lay) {
+  extern __shared__ float smem[];
   const int p = threadIdx.x;
   const int npx = blockDim.x;
   const int lane = p % kWarp;
   const int warp = p / kWarp;
   const int n_warps = npx / kWarp;
-  const int base = (start / chunk) * chunk;
+  const int words = (chunk + kWarp - 1) / kWarp;
+  float* const buf0 = smem;
+  float* const buf1 = smem + kUsedRows * chunk;
+  float* const red = smem + 2 * kUsedRows * chunk;
+  unsigned* const mask =
+      reinterpret_cast<unsigned*>(red + n_warps * kUsedRows * chunk);
+  const WarpSums sums{red, mask, chunk, n_warps, words};
+  const float px = static_cast<float>(p % tile);
+  const float py = static_cast<float>(p / tile);
+  const long long pix = (p / tile) * lay.pix_row + p % tile;
 
-  float T = 1.0f;
-  typename Form::Carry carry{};
-  int c = 0;
-  for (int win = base; win < end; win += chunk, ++c) {
-    if (__syncthreads_count(T >= kTEps) == 0) break;
-    stage_window(sm, feats, stride, win, start, end, chunk);
+  const int n_windows = __ldg(&grad_offsets[n_tiles]) / chunk;
+  int g = blockIdx.x;
+  if (g >= n_windows) return;
+  Window cur = window_at(g, offsets, grad_offsets, n_tiles, chunk);
+  stage_window_async(buf0, feats, stride, width, cur.win, chunk);
+  cp_async_commit();
+  for (int i = 0; g < n_windows; g += gridDim.x, ++i) {
+    const float* st = state + static_cast<long long>(g) * 4 * npx + p;
+    const float T0 = st[0];
+    // also the barrier that keeps the previous window's reads of the
+    // other buffer, red and mask ahead of this window's copies and stores
+    const bool busy =
+        __syncthreads_count(T0 >= kTEps) != 0 && cur.lo < cur.hi;
+    const int gn = g + gridDim.x;
+    Window nxt = cur;
+    if (gn < n_windows) {
+      nxt = window_at(gn, offsets, grad_offsets, n_tiles, chunk);
+      stage_window_async((i & 1) ? buf0 : buf1, feats, stride, width,
+                         nxt.win, chunk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this window's copies
     __syncthreads();
-    const int lo = max(start - win, 0);
-    const int hi = min(end - win, chunk);
-    bool live = true;  // false after the pixel's walk stopped in this window
-    for (int k = lo; k < hi; ++k) {
-      float v[kUsedRows];
+    if (busy) {
+      const float* sm = (i & 1) ? buf1 : buf0;
+      const int tx = cur.t % n_tiles_x;
+      const int ty = cur.t / n_tiles_x;
+      const float ox = static_cast<float>(tx) * tile;
+      const float oy = static_cast<float>(ty) * tile;
+      const long long at = ty * lay.tile_row + tx * lay.tile_col + pix;
+      const PixelGrad pg = pixel_grad(gout + at, fwd_out + at, lay.row);
+      typename Form::Carry carry(st[npx], st[2 * npx], st[3 * npx], pg);
+      float T = T0;
+      bool live = true;  // false after the pixel's walk stopped here
+      unsigned bits = 0;
+      for (int k = cur.lo; k < cur.hi; ++k) {
+        float v[kUsedRows];
 #pragma unroll
-      for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
-      bool contrib = false;
-      Composite cp;
-      if (live && pair_alpha(sm, chunk, k, ox, oy, px, py, &cp.a)) {
-        float t_after;
-        if (pair_composites(T, cp.a.alpha, &t_after)) {
-          contrib = true;
-          cp.T = T;
-          cp.w = cp.a.alpha * T;
-          cp.inv1m = 1.0f / (1.0f - cp.a.alpha);
-          Form::terms(carry, sm, chunk, k, cp, px, py, pg, v);
-          T = t_after;
-        } else {
-          live = false;
+        for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
+        bool contrib = false;
+        Composite cp;
+        if (live && pair_alpha(sm, chunk, k, ox, oy, px, py, &cp.a)) {
+          float t_after;
+          if (pair_composites(T, cp.a.alpha, &t_after)) {
+            contrib = true;
+            cp.T = T;
+            cp.w = cp.a.alpha * T;
+            cp.inv1m = 1.0f / (1.0f - cp.a.alpha);
+            Form::terms(carry, sm, chunk, k, cp, px, py, pg, v);
+            T = t_after;
+          } else {
+            live = false;
+          }
+        }
+        if (__any_sync(0xffffffffu, contrib)) {
+#pragma unroll
+          for (int r = 0; r < kUsedRows; ++r) v[r] = warp_sum(v[r]);
+          if (lane == 0) {
+            float* rk = red + warp * kUsedRows * chunk + k;
+#pragma unroll
+            for (int r = 0; r < kUsedRows; ++r) rk[r * chunk] = v[r];
+          }
+          bits |= 1u << (k & 31);
+        }
+        if ((k & 31) == 31 || k == cur.hi - 1) {
+          if (lane == 0) mask[warp * words + (k >> 5)] = bits;
+          bits = 0;
         }
       }
-      float* rk = red + warp * kUsedRows * chunk + k;
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int r = 0; r < kUsedRows; ++r) v[r] = warp_sum(v[r]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kUsedRows; ++r) rk[r * chunk] = v[r];
+      __syncthreads();
+      float* gw = grads + static_cast<long long>(g) * chunk;
+      for (int j = p; j < kUsedRows * chunk; j += npx) {
+        const int row = j / chunk;
+        const int k = j - row * chunk;
+        if (k < cur.lo || k >= cur.hi) continue;
+        gw[row * gstride + k] = Form::row(row, sm, sums, chunk, k, ox, oy);
       }
     }
-    __syncthreads();
-    float* gw = grads + gbase + static_cast<long long>(c) * chunk;
-    for (int i = p; i < kUsedRows * chunk; i += npx) {
-      const int row = i / chunk;
-      const int k = i - row * chunk;
-      if (k < lo || k >= hi) continue;
-      gw[row * gstride + k] =
-          Form::row(row, sm, red, chunk, k, n_warps, ox, oy);
-    }
+    cur = nxt;
   }
+  cp_async_wait<0>();
 }
 
-// Dynamic shared memory of the backward kernel: the staged window plus
-// one (kUsedRows, chunk) reduction block per warp.
+// Dynamic shared memory of the backward kernel: two staged windows, one
+// (kUsedRows, chunk) block of warp sums and a chunk-bit mask per warp.
 inline size_t bwd_smem_bytes(int chunk, int npx) {
-  return static_cast<size_t>(kUsedRows) * chunk * (1 + npx / kWarp) *
-         sizeof(float);
+  const int n_warps = npx / kWarp;
+  return sizeof(float) * static_cast<size_t>(kUsedRows) * chunk *
+             (2 + n_warps) +
+         sizeof(unsigned) * static_cast<size_t>(n_warps) *
+             ((chunk + kWarp - 1) / kWarp);
 }
 
-// One CTA per tile, one thread per pixel: the pixel's inputs at the
-// layout's address, then bwd_walk<Form>.
+// Launch bwd_kernel<Form> on `stream` over a persistent grid: as many
+// CTAs as fit on the card at once, at most one per window of the
+// buffer. row_tiles 0 reads the tiled layout, row_tiles > 0 the panel
+// planes (padded tile rows of row_tiles tiles). Returns the first CUDA
+// error of the set-up or of the launch.
 template <class Form>
-__global__ void bwd_kernel(const float* __restrict__ feats, long long stride,
-                           const int* __restrict__ offsets,
-                           const int* __restrict__ grad_offsets,
-                           const float* __restrict__ fwd_out,
-                           const float* __restrict__ gout,
-                           float* __restrict__ grads, long long gstride,
-                           int tile, int chunk, int n_tiles_x, int row_tiles,
-                           PixelLayout lay) {
-  extern __shared__ float smem[];
-  const TilePixel tp =
-      tile_pixel(offsets, grad_offsets, tile, n_tiles_x, row_tiles, lay);
-  const PixelGrad pg = pixel_grad(gout + tp.at, fwd_out + tp.at, lay.row);
-  bwd_walk<Form>(smem, smem + kUsedRows * chunk, feats, stride, tp.start,
-                 tp.end, chunk, static_cast<float>(tp.tx) * tile,
-                 static_cast<float>(tp.ty) * tile, static_cast<float>(tp.px),
-                 static_cast<float>(tp.py), pg, grads, gstride, tp.gbase);
-}
-
-// Launch bwd_kernel<Form> on `stream`; row_tiles 0 reads the tiled
-// layout, row_tiles > 0 the panel planes over n_tiles_y * row_tiles
-// tiles. Returns cudaGetLastError() of the launch.
-template <class Form>
-int bwd_launch(const float* feats, long long stride, const int* offsets,
-               const int* grad_offsets, const float* fwd_out,
-               const float* gout, float* grads, long long gstride,
-               int n_tiles_y, int n_tiles_x, int tile, int chunk,
-               int row_tiles, cudaStream_t stream) {
+int bwd_launch(const float* feats, long long stride, int width,
+               const int* offsets, const int* grad_offsets,
+               const float* fwd_out, const float* gout, const float* state,
+               float* grads, long long gstride, int n_tiles_y, int n_tiles_x,
+               int tile, int chunk, int row_tiles, cudaStream_t stream) {
   const PixelLayout lay = row_tiles > 0
                               ? panel_layout(tile, n_tiles_y, row_tiles)
                               : tiled_layout(tile, n_tiles_x);
-  if (row_tiles <= 0) row_tiles = n_tiles_x;
-  if (n_tiles_y <= 0 || row_tiles <= 0) return 0;
+  const long long max_windows = gstride / chunk;
+  if (n_tiles_y <= 0 || n_tiles_x <= 0 || max_windows <= 0) return 0;
   const int npx = tile * tile;
   const size_t smem = bwd_smem_bytes(chunk, npx);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bwd_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  bwd_kernel<Form><<<n_tiles_y * row_tiles, npx, smem, stream>>>(
-      feats, stride, offsets, grad_offsets, fwd_out, gout, grads, gstride,
-      tile, chunk, n_tiles_x, row_tiles, lay);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      bwd_kernel<Form>, npx,
+                                                      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long fit = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(fit < max_windows ? fit : max_windows);
+  bwd_kernel<Form><<<grid, npx, smem, stream>>>(
+      feats, stride, width, offsets, grad_offsets, n_tiles_y * n_tiles_x,
+      fwd_out, gout, state, grads, gstride, tile, chunk, n_tiles_x, lay);
   return static_cast<int>(cudaGetLastError());
 }
 

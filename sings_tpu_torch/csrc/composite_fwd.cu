@@ -12,6 +12,13 @@
 //   feats   (16, stride) f32, pair-minor rows: 0 mean_x | 1 mean_y |
 //           2..4 conic a, b, c | 5..7 rgb | 8 opacity (rows 9..15 unused)
 //   offsets (T + 1,) int32, T = n_tiles_y * n_tiles_x
+//   grad_offsets, state
+//           optional (both null, or both given): the gradient buffer's
+//           (T + 1,) int32 window offsets and a (grad_cap / chunk, 4,
+//           tile*tile) f32 buffer that receives each window's entry T
+//           and colour sums (composite_common.cuh), the backward's
+//           starting point; the training step asks for it, the
+//           animation path does not
 //   out     tiled: (T, 8, tile*tile) f32: rows 0..2 rgb, 3 T_final,
 //           4..7 zero;
 //           panel: (4, Hp, Wp) f32 image planes of rows 0..3,
@@ -50,6 +57,10 @@
 // bound. The simple design keeps all 256 lanes busy on that arithmetic;
 // double-buffered staging (cp.async / TMA) is later work.
 //
+// Writing the window-entry state costs four coalesced stores per pixel
+// and window walked, against the walk's ~25 operations per pair-pixel of
+// up to 128 pairs.
+//
 // The walk (alpha, termination, window staging, tile exit) lives in
 // composite_common.cuh, shared with composite_bwd.cu. Built with
 // -fmad=false so products and sums round like the plain PyTorch
@@ -68,18 +79,23 @@ using composite::kUsedRows;
 __global__ void composite_fwd_kernel(const float* __restrict__ feats,
                                      long long stride,
                                      const int* __restrict__ offsets,
+                                     const int* __restrict__ grad_offsets,
+                                     float* __restrict__ state,
                                      float* __restrict__ out, int tile,
                                      int chunk, int n_tiles_x, int row_tiles,
                                      composite::PixelLayout lay) {
   extern __shared__ float sm[];  // [kUsedRows][chunk]
   const composite::TilePixel tp = composite::tile_pixel(
-      offsets, nullptr, tile, n_tiles_x, row_tiles, lay);
+      offsets, grad_offsets, tile, n_tiles_x, row_tiles, lay);
+  const int npx = tile * tile;
+  float* st = state ? state + (tp.gbase / chunk) * 4 * npx + threadIdx.x
+                    : nullptr;
   float rgb[3], T;
   composite::fwd_walk(sm, feats, stride, tp.start, tp.end, chunk,
                       static_cast<float>(tp.tx) * tile,
                       static_cast<float>(tp.ty) * tile,
                       static_cast<float>(tp.px), static_cast<float>(tp.py),
-                      rgb, &T);
+                      rgb, &T, st, npx);
   float* o = out + tp.at;
   o[0] = rgb[0];
   o[lay.row] = rgb[1];
@@ -91,10 +107,12 @@ __global__ void composite_fwd_kernel(const float* __restrict__ feats,
 }  // namespace
 
 // Launch on `stream`; row_tiles 0 writes the tiled layout, row_tiles > 0
-// the panel planes over n_tiles_y * row_tiles tiles. Returns
-// cudaGetLastError() of the launch.
+// the panel planes over n_tiles_y * row_tiles tiles; grad_offsets and
+// state null, or both given. Returns cudaGetLastError() of the launch.
 extern "C" int composite_fwd_launch(const float* feats, long long stride,
-                                    const int* offsets, float* out,
+                                    const int* offsets,
+                                    const int* grad_offsets, float* state,
+                                    float* out,
                                     int n_tiles_y, int n_tiles_x, int tile,
                                     int chunk, int row_tiles, void* stream) {
   const composite::PixelLayout lay =
@@ -111,6 +129,7 @@ extern "C" int composite_fwd_launch(const float* feats, long long stride,
   }
   composite_fwd_kernel<<<n_tiles_y * row_tiles, tile * tile, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      feats, stride, offsets, out, tile, chunk, n_tiles_x, row_tiles, lay);
+      feats, stride, offsets, grad_offsets, state, out, tile, chunk,
+      n_tiles_x, row_tiles, lay);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,10 @@ background blend. The composite is an autograd.Function whose backward
 is the matching backward kernel: it writes per-pair gradients into the
 aligned buffer, and the 9 used rows are un-sorted back to gaussians
 with the main_slot / tail_slot / tail_of_gauss gathers of
-bin_gaussians.
+bin_gaussians. When a backward can follow (grad mode on and an input
+that requires grad), the forward also writes the window-entry state
+(grad_cap x 32 bytes) that the backward starts each window from; a
+render under no_grad allocates none.
 
 Two layouts, as in the JAX package (RasterConfig.layout):
   * "tiled": composite_fwd writes (T, 8, npx) tile rows, relaid out to
@@ -127,8 +130,8 @@ def unsort_pair_grads(pair_grads: torch.Tensor, binning: TileBinning,
 
 class _Composite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, means2d, conics, colors, opacities, depths,
-                radii, mask):
+    def forward(ctx, cfg, want_state, means2d, conics, colors, opacities,
+                depths, radii, mask):
         if cfg.layout not in ("tiled", "panel"):
             raise NotImplementedError(
                 f"layout={cfg.layout!r}: the layouts are 'tiled' and "
@@ -139,25 +142,34 @@ class _Composite(torch.autograd.Function):
         feats, binning = prepare_composite(g2d, cfg)
         ntx, nty = _pad_tiles(cfg)
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
-                  n_tiles_y=nty)
+                  n_tiles_y=nty,
+                  pw=cfg.panel_width if cfg.layout == "panel" else None)
+        state = None
+        if want_state:
+            out, state = composite_fwd(
+                feats, binning.tile_offsets, grad_offsets=binning.grad_offsets,
+                grad_cap=binning.pair_slot_capacity, **kw)
+        else:
+            out = composite_fwd(feats, binning.tile_offsets, **kw)
         if cfg.layout == "panel":
-            out = composite_fwd(feats, binning.tile_offsets,
-                                pw=cfg.panel_width, **kw)
             # (4, Hp, Wp) image planes: a crop, no relayout
             color = out[:3, : cfg.height, : cfg.width]
             t_final = out[3, : cfg.height, : cfg.width]
         else:
-            out = composite_fwd(feats, binning.tile_offsets, **kw)
             color, t_final = tiles_to_image(out, cfg)
         ctx.cfg = cfg
         ctx.binning = binning
-        ctx.save_for_backward(feats, out)
+        ctx.has_state = want_state
+        ctx.save_for_backward(feats, out, state)
         return color, t_final
 
     @staticmethod
     def backward(ctx, g_color, g_t):
         cfg, binning = ctx.cfg, ctx.binning
-        feats, out = ctx.saved_tensors
+        if not ctx.has_state:
+            raise RuntimeError("rasterize's composite ran without the "
+                               "window-entry state: no backward expected")
+        feats, out, state = ctx.saved_tensors
         ntx, nty = _pad_tiles(cfg)
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
                   n_tiles_y=nty, grad_cap=binning.pair_slot_capacity)
@@ -166,15 +178,16 @@ class _Composite(torch.autograd.Function):
             gout = g_color.new_zeros(out.shape)
             gout[:3, : cfg.height, : cfg.width] = g_color
             gout[3, : cfg.height, : cfg.width] = g_t
-            pair_grads = composite_bwd(*args, gout, pw=cfg.panel_width,
-                                       **kw)
+            pair_grads = composite_bwd(*args, gout, state,
+                                       pw=cfg.panel_width, **kw)
         else:
             pair_grads = composite_bwd(*args, image_to_tiles(g_color, g_t,
-                                                             cfg), **kw)
+                                                             cfg), state,
+                                       **kw)
         pg = unsort_pair_grads(pair_grads, binning,
                                binning.tail_of_gauss.shape[0])
-        return (None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8], pg[:, 8], None,
-                None, None)
+        return (None, None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8], pg[:, 8],
+                None, None, None)
 
 
 def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
@@ -212,9 +225,11 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
             chunk=chunk, max_span=max_span, max_pairs=max_pairs,
             main_width=main_width, tail_capacity=tail_capacity, cull=cull,
             pair_cap=pair_cap, scan_roll=scan_roll, layout=layout)
+        inputs = (g2d.means2d, g2d.conics, g2d.colors, g2d.opacities)
+        want_state = torch.is_grad_enabled() and any(
+            x.requires_grad for x in inputs)
         color, t_final = _Composite.apply(
-            cfg, g2d.means2d, g2d.conics, g2d.colors, g2d.opacities,
-            g2d.depths, g2d.radii, g2d.mask)
+            cfg, want_state, *inputs, g2d.depths, g2d.radii, g2d.mask)
         image = color + t_final[None] * bg[:, None, None]
     elif backend == "reference":
         image, t_final = composite_dense(g2d, camera.height, camera.width, bg)

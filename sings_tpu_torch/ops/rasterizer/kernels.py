@@ -25,6 +25,16 @@ Forward output: (T, 8, tile*tile): rows 0-2 colour (no background), row
 planes of the same rows 0-3, Hp = n_tiles_y * tile, Wp = ceil(n_tiles_x
 / pw) * pw * tile with pw = max(1, 128 // tile) (the TPU's 128-px
 panels); the sub-tiles past the last tile column hold colour 0, T = 1.
+Window-entry state (composite_fwd with grad_offsets and grad_cap, the
+backward's input): (grad_cap // chunk, 4, tile*tile) f32, row (g, 0..3)
+the T and colour sums (r, g, b) of each pixel at the top of window c of
+tile t, g = grad_offsets[t] // chunk + c (the gradient buffer's window
+numbering); zero for the windows a tile's walk never reached, which the
+backward therefore skips. The rows from grad_offsets[T] // chunk on
+belong to no tile and are never read: the kernel leaves them unwritten
+(its buffer is not zero-filled), the plain version zero. The state
+makes the backward's windows independent: composite_bwd walks them in
+parallel from it instead of re-walking each tile's segment.
 Backward output: (9, grad_cap) per-pair gradients in JAX's row order
 (d mean_x, d mean_y, d conic a, b, c, d r, g, b, d opacity), the first 9
 of JAX's 16 rows, at grad_offsets[t] + (i - base_t) for sorted pair i of
@@ -51,11 +61,14 @@ N_USED = 9
 # never through the plain version
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0,
             "composite_fwd_panel": 0, "composite_bwd_panel": 0}
+# of those, the forward launches that wrote the window-entry state
+STATE_WRITES = {"composite_fwd": 0, "composite_fwd_panel": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, STATE_WRITES):
+        for k in d:
+            d[k] = 0
 
 
 def _tri(chunk: int, device, strict: bool) -> torch.Tensor:
@@ -90,9 +103,12 @@ class _Window(NamedTuple):
     """One chunk-aligned window of every tile, as _walk_windows yields it.
 
     f: (9, T, chunk, 1) used feature rows; dx, dy, gv, alpha, t_bef,
-    flag: (T, chunk, npx); walking: (T,) tiles still walking; n_walked:
-    (T,) pairs of the tile's segment in this window (0 once it stopped);
-    t_after: (T, 1, npx) transmittance after the window.
+    flag: (T, chunk, npx); entered: (T,) tiles whose walk reached the top
+    of this window; walking: (T,) those with a pixel at T >= 1e-4 there;
+    n_walked: (T,) pairs of the tile's segment in this window (0 unless
+    walking); t_entry, t_after: (T, 1, npx) transmittance before and
+    after the window; entry: (T, 4, npx) the window's rows of the entry
+    state (None without one).
     """
     c: int
     f: torch.Tensor
@@ -102,13 +118,22 @@ class _Window(NamedTuple):
     alpha: torch.Tensor
     t_bef: torch.Tensor
     flag: torch.Tensor
+    entered: torch.Tensor
     walking: torch.Tensor
     n_walked: torch.Tensor
+    t_entry: torch.Tensor
     t_after: torch.Tensor
+    entry: torch.Tensor | None
+
+
+def state_shape(*, grad_cap: int, chunk: int, tile: int) -> tuple:
+    """The window-entry state's shape: (grad_cap // chunk, 4, npx)."""
+    return grad_cap // chunk, 4, tile * tile
 
 
 def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
-                  chunk: int, n_tiles_x: int, n_tiles_y: int):
+                  chunk: int, n_tiles_x: int, n_tiles_y: int,
+                  entry: tuple | None = None):
     """The front-to-back walk that both plain versions share, as
     csrc/composite_common.cuh is shared by both kernels.
 
@@ -116,9 +141,15 @@ def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
     alpha from tile-local coordinates (zero where the pair is skipped or
     outside the segment), the exclusive cumsum of log1p(-alpha) as a
     strictly-lower-triangular matmul (_tri_sum), the T * (1 - alpha) >=
-    1e-4 flag
-    and the carried transmittance. Tiles whose every pixel has T < 1e-4
-    stop there, as the kernels' per-tile exit does.
+    1e-4 flag and the carried transmittance. Tiles whose every pixel has
+    T < 1e-4 at a window's top stop there, as the kernels' per-tile exit
+    does; that window is still yielded (entered, not walking) for the
+    forward's state.
+
+    entry: (state, grad_offsets), the backward's case: each window's T
+    comes from the state instead of the previous window, so the windows
+    do not depend on each other, and windows where no tile walks are not
+    yielded.
     """
     dev = feats.device
     n_tiles = n_tiles_x * n_tiles_y
@@ -136,15 +167,28 @@ def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
     oy = ((tid // n_tiles_x).to(torch.float32) * tile)[:, None, None]
     ltri = _tri(chunk, dev, strict=True)
     sub = torch.arange(chunk, device=dev)
+    if entry is not None:
+        state, goffs = entry
+        win0 = torch.div(goffs[:-1].to(torch.int64), chunk,
+                         rounding_mode="floor")
 
     t_carry = torch.ones((n_tiles, 1, npx), device=dev)
     walking = torch.ones(n_tiles, dtype=torch.bool, device=dev)
     max_chunks = int(nchunks.max()) if n_tiles else 0
     for c in range(max_chunks):
-        walking = walking & (c < nchunks) & (
-            t_carry.amax(dim=(1, 2)) >= T_EPS)
-        if not bool(walking.any()):
-            return
+        rows = None
+        if entry is None:
+            entered = walking & (c < nchunks)
+            if not bool(entered.any()):
+                return
+        else:
+            entered = c < nchunks
+            g = torch.where(entered, win0 + c, torch.zeros_like(win0))
+            rows = state[g] * entered[:, None, None]       # (T, 4, npx)
+            t_carry = rows[:, 0:1]
+        walking = entered & (t_carry.amax(dim=(1, 2)) >= T_EPS)
+        if entry is not None and not bool(walking.any()):
+            continue
         gidx = base[:, None] + c * chunk + sub[None, :]        # (T, chunk)
         f = feats[:N_USED, gidx.clamp(max=width - 1)][..., None]
         pair_ok = ((gidx >= start[:, None]) & (gidx < end[:, None])
@@ -166,8 +210,8 @@ def _walk_windows(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
         la_eff = torch.where(flag, la, torch.zeros_like(la))
         t_after = t_carry * _exp(torch.sum(la_eff.double(), dim=1,
                                            keepdim=True).float())
-        yield _Window(c, f, dx, dy, gv, alpha, t_bef, flag, walking,
-                      n_walked, t_after)
+        yield _Window(c, f, dx, dy, gv, alpha, t_bef, flag, entered, walking,
+                      n_walked, t_carry, t_after, rows)
         t_carry = t_after
 
 
@@ -224,22 +268,35 @@ def out_shape(*, tile: int, n_tiles_x: int, n_tiles_y: int,
 def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
                         tile: int, chunk: int, n_tiles_x: int,
                         n_tiles_y: int, pw: int | None = None,
+                        grad_offsets: torch.Tensor | None = None,
+                        grad_cap: int | None = None,
                         return_walked: bool = False):
     """Plain PyTorch composite, vectorised over tiles: the colour sums
     of _walk_windows' compositing pairs and the last transmittance, in
     tile rows or, with pw, relaid out to the panel planes.
 
+    grad_offsets, grad_cap: also return the window-entry state (see the
+    module docstring): (out, state).
     return_walked: also return the number of pairs walked before each
-    tile's exit, summed (the data-dependent work of this input).
+    tile's exit, summed (the data-dependent work of this input), last.
     """
     n_tiles = n_tiles_x * n_tiles_y
     npx = tile * tile
     dev = feats.device
     t_final = torch.ones((n_tiles, 1, npx), device=dev)
     acc = torch.zeros((n_tiles, 3, npx), device=dev)
+    state = None
+    if grad_offsets is not None:
+        state = feats.new_zeros(state_shape(grad_cap=grad_cap, chunk=chunk,
+                                            tile=tile))
+        win0 = torch.div(grad_offsets[:-1].to(torch.int64), chunk,
+                         rounding_mode="floor")
     walked = 0
     for win in _walk_windows(feats, offsets, tile=tile, chunk=chunk,
                              n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y):
+        if state is not None:
+            state[win0[win.entered] + win.c] = torch.cat(
+                [win.t_entry, acc], dim=1)[win.entered]
         f = win.f
         w = torch.where(win.flag, win.alpha,
                         torch.zeros_like(win.alpha)) * win.t_bef
@@ -253,14 +310,15 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
     if pw is not None:
         out = tiles_to_planes(out, tile=tile, n_tiles_x=n_tiles_x,
                               n_tiles_y=n_tiles_y, pw=pw)
-    if return_walked:
-        return out, walked
-    return out
+    res = (out,) + ((state,) if state is not None else ()) + (
+        (walked,) if return_walked else ())
+    return res[0] if len(res) == 1 else res
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib(name: str = "composite_fwd", argtypes=_ARGTYPES):
@@ -290,6 +348,18 @@ def _check(feats, offsets, tile, chunk, n_tiles):
         raise ValueError(f"chunk {chunk} must be positive")
 
 
+def _check_grad_offsets(grad_offsets, n_tiles, grad_cap, chunk, device):
+    if (grad_offsets.dtype != torch.int32
+            or grad_offsets.shape != (n_tiles + 1,)
+            or not grad_offsets.is_contiguous()
+            or grad_offsets.device != device):
+        raise ValueError("grad_offsets must be contiguous int32 "
+                         f"({n_tiles + 1},) on {device}")
+    if grad_cap is None or grad_cap < chunk or grad_cap % chunk:
+        raise ValueError(f"grad_cap {grad_cap} must be a positive multiple "
+                         f"of chunk {chunk}")
+
+
 def _row_tiles(shape, tile: int, pw: int | None) -> int:
     """The launchers' layout argument: 0 for tile rows, else the tiles
     of a padded tile row of the panel planes."""
@@ -298,34 +368,53 @@ def _row_tiles(shape, tile: int, pw: int | None) -> int:
 
 def composite_fwd_cuda(feats: torch.Tensor, offsets: torch.Tensor, *,
                        tile: int, chunk: int, n_tiles_x: int,
-                       n_tiles_y: int, pw: int | None = None) -> torch.Tensor:
+                       n_tiles_y: int, pw: int | None = None,
+                       grad_offsets: torch.Tensor | None = None,
+                       grad_cap: int | None = None):
     """Launch csrc/composite_fwd.cu on the current stream: tile rows, or
-    with pw the panel planes (counted as composite_fwd_panel)."""
+    with pw the panel planes (counted as composite_fwd_panel). With
+    grad_offsets and grad_cap, also the window-entry state: returns
+    (out, state)."""
     name = "composite_fwd" if pw is None else "composite_fwd_panel"
     if not (feats.is_cuda and offsets.is_cuda
             and feats.device == offsets.device):
         raise ValueError(f"{name} needs both tensors on one CUDA device")
     _check(feats, offsets, tile, chunk, n_tiles_x * n_tiles_y)
+    state = None
+    if grad_offsets is not None:
+        _check_grad_offsets(grad_offsets, n_tiles_x * n_tiles_y, grad_cap,
+                            chunk, feats.device)
+        state = torch.empty(state_shape(grad_cap=grad_cap, chunk=chunk,
+                                        tile=tile),
+                            dtype=torch.float32, device=feats.device)
     shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
                       pw=pw)
     fn = _lib()
     out = torch.empty(shape, dtype=torch.float32, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
+             None if state is None else grad_offsets.data_ptr(),
+             None if state is None else state.data_ptr(),
              out.data_ptr(), n_tiles_y, n_tiles_x, tile, chunk,
              _row_tiles(shape, tile, pw), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
-    return out
+    if state is None:
+        return out
+    STATE_WRITES[name] += 1
+    return out, state
 
 
 def composite_fwd(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
                   chunk: int, n_tiles_x: int, n_tiles_y: int,
-                  pw: int | None = None) -> torch.Tensor:
+                  pw: int | None = None,
+                  grad_offsets: torch.Tensor | None = None,
+                  grad_cap: int | None = None):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
-              n_tiles_y=n_tiles_y, pw=pw)
+              n_tiles_y=n_tiles_y, pw=pw, grad_offsets=grad_offsets,
+              grad_cap=grad_cap)
     if feats.is_cuda:
         return composite_fwd_cuda(feats, offsets, **kw)
     if feats.device.type == "cpu":
@@ -335,12 +424,15 @@ def composite_fwd(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
 
 def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
                         grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
-                        gout: torch.Tensor, *, tile: int, chunk: int,
-                        n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                        gout: torch.Tensor, state: torch.Tensor, *,
+                        tile: int, chunk: int, n_tiles_x: int,
+                        n_tiles_y: int, grad_cap: int,
                         pw: int | None = None, return_counts: bool = False):
     """Plain PyTorch backward, vectorised over tiles.
 
-    The TPU kernel's arithmetic on _walk_windows' windows: the inclusive
+    The TPU kernel's arithmetic on _walk_windows' windows, each started
+    from the window-entry state: T from row 0, the cumsum carry
+    cpg = g_r acc_r + g_g acc_g + g_b acc_b from rows 1-3; the inclusive
     cumsum of w * gc as a triangular matmul, the closed form dC/dalpha
     and the pixel reductions. Writes each walking tile's window into a
     zeroed (9, grad_cap) buffer at grad_offsets[t] + c * chunk. With pw,
@@ -355,8 +447,6 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
         fwd_out = planes_to_tiles(fwd_out, **lay)
         gout = planes_to_tiles(gout, **lay)
     dev = feats.device
-    n_tiles = n_tiles_x * n_tiles_y
-    npx = tile * tile
     goffs = grad_offsets.to(torch.int64)
     linc = _tri(chunk, dev, strict=False)
     sub = torch.arange(chunk, device=dev)
@@ -365,14 +455,17 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
     cfg = torch.sum(g_rgb * fwd_out[:, 0:3], dim=1, keepdim=True)
     gtf = gout[:, 3:4] * fwd_out[:, 3:4]                    # (T, 1, npx)
     grads = feats.new_zeros((N_USED, grad_cap))
-    cpg = torch.zeros((n_tiles, 1, npx), device=dev)
     walked = composited = 0
     for win in _walk_windows(feats, offsets, tile=tile, chunk=chunk,
-                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y):
+                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+                             entry=(state, grad_offsets)):
         f, dx, dy, gv, t_bef = win.f, win.dx, win.dy, win.gv, win.t_bef
         aeff = torch.where(win.flag, win.alpha, torch.zeros_like(win.alpha))
         w = aeff * t_bef
         gc = f[5] * g_rgb[:, 0:1] + f[6] * g_rgb[:, 1:2] + f[7] * g_rgb[:, 2:3]
+        cpg = (g_rgb[:, 0:1] * win.entry[:, 1:2]
+               + g_rgb[:, 1:2] * win.entry[:, 2:3]
+               + g_rgb[:, 2:3] * win.entry[:, 3:4])
         upg = cpg + _tri_sum(linc, w * gc)
         dl_da = t_bef * gc - ((cfg - upg) + gtf) / (1.0 - aeff)
         dl_da = torch.where(aeff > 0.0, dl_da, torch.zeros_like(dl_da))
@@ -391,7 +484,6 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
             (g_rgb[:, 2:3] * w).sum(dim=2), (gv * dl_da).sum(dim=2)])
         slots = goffs[:-1, None] + win.c * chunk + sub[None, :]  # (T, chunk)
         grads[:, slots[win.walking]] = block[:, win.walking]
-        cpg = upg[:, chunk - 1:chunk]
         if return_counts:
             walked += int(win.n_walked.sum())
             composited += int((aeff > 0.0).sum())
@@ -400,57 +492,70 @@ def composite_bwd_plain(feats: torch.Tensor, offsets: torch.Tensor,
     return grads
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p]
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout, *, tile,
-               chunk, n_tiles_x, n_tiles_y, grad_cap, pw=None) -> tuple:
+def _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout, state, *,
+               tile, chunk, n_tiles_x, n_tiles_y, grad_cap, pw=None) -> tuple:
     """A backward launcher's argument checks; returns the layout's shape
     of fwd_out and gout."""
     n_tiles = n_tiles_x * n_tiles_y
-    tensors = (feats, offsets, grad_offsets, fwd_out, gout)
+    tensors = (feats, offsets, grad_offsets, fwd_out, gout, state)
     if not all(x.is_cuda and x.device == feats.device for x in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device")
     _check(feats, offsets, tile, chunk, n_tiles)
-    if grad_offsets.dtype != torch.int32 or grad_offsets.shape != (
-            n_tiles + 1,) or not grad_offsets.is_contiguous():
-        raise ValueError("grad_offsets must be contiguous int32 "
-                         f"({n_tiles + 1},)")
+    _check_grad_offsets(grad_offsets, n_tiles, grad_cap, chunk, feats.device)
+    if feats.data_ptr() % 16 or feats.stride(0) % 4 or chunk % 4:
+        raise ValueError("the backward stages feats in 16-byte copies: "
+                         "feats 16-byte aligned, its row stride and chunk "
+                         "multiples of 4")
     shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
                       pw=pw)
-    for arg, x in (("fwd_out", fwd_out), ("gout", gout)):
-        if (x.dtype != torch.float32 or x.shape != shape
+    st = state_shape(grad_cap=grad_cap, chunk=chunk, tile=tile)
+    for arg, x, want in (("fwd_out", fwd_out, shape), ("gout", gout, shape),
+                         ("state", state, st)):
+        if (x.dtype != torch.float32 or x.shape != want
                 or not x.is_contiguous()):
-            raise ValueError(f"{arg} must be contiguous f32 {shape}, got "
+            raise ValueError(f"{arg} must be contiguous f32 {want}, got "
                              f"{x.dtype} {tuple(x.shape)}")
-    if grad_cap < chunk:
-        raise ValueError(f"grad_cap {grad_cap} < chunk {chunk}")
     return shape
+
+
+def bwd_launch_args(feats, offsets, grad_offsets, fwd_out, gout, state,
+                    grads, *, tile, chunk, n_tiles_x, n_tiles_y,
+                    grad_cap) -> tuple:
+    """The leading arguments of the backward launchers (composite_bwd.cu,
+    composite_bwd_variants.cu), up to and including chunk."""
+    return (feats.data_ptr(), feats.stride(0), feats.shape[1],
+            offsets.data_ptr(), grad_offsets.data_ptr(), fwd_out.data_ptr(),
+            gout.data_ptr(), state.data_ptr(), grads.data_ptr(), grad_cap,
+            n_tiles_y, n_tiles_x, tile, chunk)
 
 
 def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
                        grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
-                       gout: torch.Tensor, *, tile: int, chunk: int,
-                       n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                       gout: torch.Tensor, state: torch.Tensor, *,
+                       tile: int, chunk: int, n_tiles_x: int,
+                       n_tiles_y: int, grad_cap: int,
                        pw: int | None = None) -> torch.Tensor:
     """Launch csrc/composite_bwd.cu on the current stream into a zeroed
     (9, grad_cap) buffer; fwd_out and gout in tile rows, or with pw in
-    panel planes (counted as composite_bwd_panel)."""
+    panel planes (counted as composite_bwd_panel); state from
+    composite_fwd(grad_offsets=, grad_cap=) on the same inputs."""
     name = "composite_bwd" if pw is None else "composite_bwd_panel"
-    shape = _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout,
-                       tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
-                       n_tiles_y=n_tiles_y, grad_cap=grad_cap, pw=pw)
+    kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
+              n_tiles_y=n_tiles_y, grad_cap=grad_cap)
+    args = (feats, offsets, grad_offsets, fwd_out, gout, state)
+    shape = _check_bwd(name, *args, pw=pw, **kw)
     fn = _lib("composite_bwd", _BWD_ARGTYPES)
     grads = torch.zeros((N_USED, grad_cap), dtype=torch.float32,
                         device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
-             grad_offsets.data_ptr(), fwd_out.data_ptr(), gout.data_ptr(),
-             grads.data_ptr(), grad_cap, n_tiles_y, n_tiles_x, tile, chunk,
+    err = fn(*bwd_launch_args(*args, grads, **kw),
              _row_tiles(shape, tile, pw), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -460,13 +565,13 @@ def composite_bwd_cuda(feats: torch.Tensor, offsets: torch.Tensor,
 
 def composite_bwd(feats: torch.Tensor, offsets: torch.Tensor,
                   grad_offsets: torch.Tensor, fwd_out: torch.Tensor,
-                  gout: torch.Tensor, *, tile: int, chunk: int,
-                  n_tiles_x: int, n_tiles_y: int, grad_cap: int,
+                  gout: torch.Tensor, state: torch.Tensor, *, tile: int,
+                  chunk: int, n_tiles_x: int, n_tiles_y: int, grad_cap: int,
                   pw: int | None = None) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
               n_tiles_y=n_tiles_y, grad_cap=grad_cap, pw=pw)
-    args = (feats, offsets, grad_offsets, fwd_out, gout)
+    args = (feats, offsets, grad_offsets, fwd_out, gout, state)
     if feats.is_cuda:
         return composite_bwd_cuda(*args, **kw)
     if feats.device.type == "cpu":

@@ -18,14 +18,17 @@ design on the TPU:
           three multiply-adds either way: v2 launches v4's code and
           counts its own launches.
 The frozen JAX script wrote the pre-relayout buffer; these write the
-current one: composite_bwd's arguments (tiled layout) and output, a
-zeroed (9, grad_cap) buffer at grad_offsets[t] + c * chunk.
+current one: composite_bwd's arguments (tiled layout; the window-entry
+state of composite_fwd included) and output, a zeroed (9, grad_cap)
+buffer at grad_offsets[t] + c * chunk.
 
 The kernels are one templated CUDA kernel, csrc/composite_bwd_variants.cu,
-built with nvcc for sm_90a and called through ctypes. It walks,
-terminates and exits where csrc/composite_bwd.cu does (the walk pieces
-of composite_common.cuh). The plain versions run kernels.py's
-_walk_windows and keep only their own accumulation and reduction,
+built with nvcc for sm_90a and called through ctypes. It walks the
+windows that csrc/composite_bwd.cu walks, from the same entry state,
+and terminates where it does (composite_common.cuh's bwd_kernel). The
+plain versions run kernels.py's _walk_windows from the entry state (the
+cumsums start from its colour sums) and keep only their own
+accumulation and reduction,
 copied from the JAX body they name; where the JAX body takes a matmul
 (the cumsums, the moments, the colour sums of the moment forms) they
 take it in float64 and round once, as _tri_sum does.
@@ -40,7 +43,9 @@ import ctypes
 import torch
 
 from .. import cuda_build
-from .kernels import N_USED, _check_bwd, _tri, _tri_sum, _walk_windows
+from .kernels import (
+    N_USED, _check_bwd, _tri, _tri_sum, _walk_windows, bwd_launch_args,
+)
 
 VARIANTS = ("v1", "v3", "v4", "v2")
 
@@ -83,8 +88,8 @@ def _f64_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).float()
 
 
-def _plain(feats, offsets, grad_offsets, fwd_out, gout, *, form: str,
-           tile: int, chunk: int, n_tiles_x: int, n_tiles_y: int,
+def _plain(feats, offsets, grad_offsets, fwd_out, gout, state, *,
+           form: str, tile: int, chunk: int, n_tiles_x: int, n_tiles_y: int,
            grad_cap: int) -> torch.Tensor:
     _, per_channel, moments, row5_guard = FORMS[form]
     dev = feats.device
@@ -99,29 +104,27 @@ def _plain(feats, offsets, grad_offsets, fwd_out, gout, *, form: str,
     cfg = torch.sum(g_rgb * cf, dim=1, keepdim=True)
     gtf = gout[:, 3:4] * fwd_out[:, 3:4]
     grads = feats.new_zeros((N_USED, grad_cap))
-    cp = torch.zeros((n_tiles_x * n_tiles_y, 3 if per_channel else 1,
-                      tile * tile), device=dev)
     for win in _walk_windows(feats, offsets, tile=tile, chunk=chunk,
-                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y):
+                             n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+                             entry=(state, grad_offsets)):
         f, dx, dy, gv, t_bef = win.f, win.dx, win.dy, win.gv, win.t_bef
         aeff = torch.where(win.flag, win.alpha, torch.zeros_like(win.alpha))
         w = aeff * t_bef
         inv1m = 1.0 / (1.0 - aeff)
+        acc = win.entry[:, 1:4]                           # (T, 3, npx)
         if per_channel:
-            up_r = cp[:, 0:1] + _tri_sum(linc, w * f[5])
-            up_g = cp[:, 1:2] + _tri_sum(linc, w * f[6])
-            up_b = cp[:, 2:3] + _tri_sum(linc, w * f[7])
+            up_r = acc[:, 0:1] + _tri_sum(linc, w * f[5])
+            up_g = acc[:, 1:2] + _tri_sum(linc, w * f[6])
+            up_b = acc[:, 2:3] + _tri_sum(linc, w * f[7])
             dl_da = (g_r * (f[5] * t_bef - (cf[:, 0:1] - up_r) * inv1m)
                      + g_g * (f[6] * t_bef - (cf[:, 1:2] - up_g) * inv1m)
                      + g_b * (f[7] * t_bef - (cf[:, 2:3] - up_b) * inv1m)
                      - gtf * inv1m)
-            cp = torch.cat([up_r[:, chunk - 1:chunk], up_g[:, chunk - 1:chunk],
-                            up_b[:, chunk - 1:chunk]], dim=1)
         else:
             gc = f[5] * g_r + f[6] * g_g + f[7] * g_b
-            upg = cp + _tri_sum(linc, w * gc)
+            cpg = g_r * acc[:, 0:1] + g_g * acc[:, 1:2] + g_b * acc[:, 2:3]
+            upg = cpg + _tri_sum(linc, w * gc)
             dl_da = t_bef * gc - inv1m * ((cfg - upg) + gtf)
-            cp = upg[:, chunk - 1:chunk]
         dl_da = torch.where(aeff > 0.0, dl_da, torch.zeros_like(dl_da))
         ca, cb, cc, op = f[2], f[3], f[4], f[8]            # (T, chunk, 1)
         if moments:
@@ -162,11 +165,11 @@ def _plain(feats, offsets, grad_offsets, fwd_out, gout, *, form: str,
     return grads
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib():
@@ -177,21 +180,19 @@ def _lib():
     return fn
 
 
-def _cuda(feats, offsets, grad_offsets, fwd_out, gout, *, form: str,
+def _cuda(feats, offsets, grad_offsets, fwd_out, gout, state, *, form: str,
           tile: int, chunk: int, n_tiles_x: int, n_tiles_y: int,
           grad_cap: int) -> torch.Tensor:
     name = launch_name(form)
-    _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout, tile=tile,
-               chunk=chunk, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
-               grad_cap=grad_cap)
+    kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
+              n_tiles_y=n_tiles_y, grad_cap=grad_cap)
+    args = (feats, offsets, grad_offsets, fwd_out, gout, state)
+    _check_bwd(name, *args, **kw)
     fn = _lib()
     grads = torch.zeros((N_USED, grad_cap), dtype=torch.float32,
                         device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
-             grad_offsets.data_ptr(), fwd_out.data_ptr(), gout.data_ptr(),
-             grads.data_ptr(), grad_cap, n_tiles_y, n_tiles_x, tile, chunk,
-             FORMS[form][0], stream)
+    err = fn(*bwd_launch_args(*args, grads, **kw), FORMS[form][0], stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -214,49 +215,49 @@ def _variant(variant: str) -> str:
 
 
 def composite_bwd_moments_plain(feats, offsets, grad_offsets, fwd_out, gout,
-                                **kw) -> torch.Tensor:
+                                state, **kw) -> torch.Tensor:
     """Plain PyTorch row 5, vectorised over tiles."""
-    return _plain(feats, offsets, grad_offsets, fwd_out, gout,
+    return _plain(feats, offsets, grad_offsets, fwd_out, gout, state,
                   form="moments", **kw)
 
 
 def composite_bwd_moments_cuda(feats, offsets, grad_offsets, fwd_out, gout,
-                               **kw) -> torch.Tensor:
+                               state, **kw) -> torch.Tensor:
     """Launch row 5's form of csrc/composite_bwd_variants.cu."""
-    return _cuda(feats, offsets, grad_offsets, fwd_out, gout,
+    return _cuda(feats, offsets, grad_offsets, fwd_out, gout, state,
                  form="moments", **kw)
 
 
-def composite_bwd_moments(feats, offsets, grad_offsets, fwd_out, gout, *,
-                          tile: int, chunk: int, n_tiles_x: int,
+def composite_bwd_moments(feats, offsets, grad_offsets, fwd_out, gout, state,
+                          *, tile: int, chunk: int, n_tiles_x: int,
                           n_tiles_y: int, grad_cap: int) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
               n_tiles_y=n_tiles_y, grad_cap=grad_cap)
-    return _dispatch((feats, offsets, grad_offsets, fwd_out, gout), kw,
-                     "moments")
+    return _dispatch((feats, offsets, grad_offsets, fwd_out, gout, state),
+                     kw, "moments")
 
 
 def composite_bwd_variant_plain(feats, offsets, grad_offsets, fwd_out, gout,
-                                *, variant: str, **kw) -> torch.Tensor:
+                                state, *, variant: str, **kw) -> torch.Tensor:
     """Plain PyTorch row 7 in the given variant."""
-    return _plain(feats, offsets, grad_offsets, fwd_out, gout,
+    return _plain(feats, offsets, grad_offsets, fwd_out, gout, state,
                   form=_variant(variant), **kw)
 
 
 def composite_bwd_variant_cuda(feats, offsets, grad_offsets, fwd_out, gout,
-                               *, variant: str, **kw) -> torch.Tensor:
+                               state, *, variant: str, **kw) -> torch.Tensor:
     """Launch the variant's form of csrc/composite_bwd_variants.cu."""
-    return _cuda(feats, offsets, grad_offsets, fwd_out, gout,
+    return _cuda(feats, offsets, grad_offsets, fwd_out, gout, state,
                  form=_variant(variant), **kw)
 
 
-def composite_bwd_variant(feats, offsets, grad_offsets, fwd_out, gout, *,
-                          variant: str, tile: int, chunk: int,
+def composite_bwd_variant(feats, offsets, grad_offsets, fwd_out, gout, state,
+                          *, variant: str, tile: int, chunk: int,
                           n_tiles_x: int, n_tiles_y: int,
                           grad_cap: int) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
               n_tiles_y=n_tiles_y, grad_cap=grad_cap)
-    return _dispatch((feats, offsets, grad_offsets, fwd_out, gout), kw,
-                     _variant(variant))
+    return _dispatch((feats, offsets, grad_offsets, fwd_out, gout, state),
+                     kw, _variant(variant))

@@ -11,8 +11,14 @@ prefix sum down the rows, summed over the rows and accumulated into a
   cumsum  cumsum(la) - la;
   shift   seven masked shift-adds (Hillis-Steele), then minus la;
   tri3    one L @ [la, 2 la, 3 la] product, the three parts summed.
-The kernel is csrc/chunk_scan_bench.cu, one CTA of 256 threads, built
-with nvcc for sm_90a and called through ctypes. CUDA tensors launch it
+The kernel is csrc/chunk_scan_bench.cu, built with nvcc for sm_90a and
+called through ctypes: `ctas` CTAs of 256 threads, CTA p summing the
+contiguous steps [steps p // ctas, steps (p + 1) // ctas) in order,
+then the CTAs' partial rows added in CTA order (one CTA, the default,
+is the TPU script's order; the card's SM count fills the card). The
+steps' float32 row sums are accumulated in float64 and rounded once,
+where the TPU kernel accumulated in float32. The plain version adds in
+the same order and precision. CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version.
 """
 from __future__ import annotations
@@ -67,48 +73,66 @@ def _excl(la: torch.Tensor, mode: str) -> torch.Tensor:
     return r[..., :NPX] + r[..., NPX:2 * NPX] + r[..., 2 * NPX:]
 
 
+def step_ranges(steps: int, ctas: int) -> list:
+    """Each CTA's steps [lo, hi), in CTA order."""
+    return [(steps * p // ctas, steps * (p + 1) // ctas)
+            for p in range(ctas)]
+
+
 def chunk_scan_bench_plain(x: torch.Tensor, *, mode: str,
-                           steps: int = STEPS) -> torch.Tensor:
-    """Plain PyTorch version, _BLOCK steps at a time: (1, NPX). The
-    steps' row sums join the accumulator one step after another, as in
-    the kernels: over 4096 steps a float32 sum in another order moves
-    the result by up to ~1e-4 of it."""
+                           steps: int = STEPS, ctas: int = 1
+                           ) -> torch.Tensor:
+    """Plain PyTorch version, _BLOCK steps at a time: (1, NPX). Within
+    each CTA's range the steps' float32 row sums join its float64 partial
+    one step after another, and the partials join the float64 output in
+    CTA order, rounded once, as in the kernel (over 4096 steps a float32
+    accumulator moves by up to ~1e-4 of the result with the order)."""
     mode = _mode(mode)
+    if ctas <= 0:
+        raise ValueError(f"ctas {ctas} must be positive")
     factors = 1.0 + torch.arange(steps, device=x.device,
                                  dtype=torch.float32) * 1e-9
-    acc = torch.zeros((1, NPX), device=x.device)
-    for s0 in range(0, steps, _BLOCK):
-        la = x[None] * factors[s0:s0 + _BLOCK, None, None]
-        for colsum in _excl(la, mode).sum(dim=1, keepdim=True):
-            acc = acc + colsum
-    return acc
+    out = torch.zeros((1, NPX), device=x.device, dtype=torch.float64)
+    for lo, hi in step_ranges(steps, ctas):
+        acc = torch.zeros_like(out)
+        for s0 in range(lo, hi, _BLOCK):
+            la = x[None] * factors[s0:min(s0 + _BLOCK, hi), None, None]
+            for colsum in _excl(la, mode).sum(dim=1, keepdim=True):
+                acc = acc + colsum.double()
+        out = out + acc
+    return out.float()
 
 
 def _lib():
     fn = cuda_build.load("chunk_scan_bench").chunk_scan_bench_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def chunk_scan_bench_cuda(x: torch.Tensor, *, mode: str,
-                          steps: int = STEPS) -> torch.Tensor:
-    """Launch csrc/chunk_scan_bench.cu (one CTA) on the current stream."""
+                          steps: int = STEPS, ctas: int = 1) -> torch.Tensor:
+    """Launch csrc/chunk_scan_bench.cu (`ctas` CTAs, then the sum of
+    their partial rows) on the current stream."""
     mode = _mode(mode)
     if not x.is_cuda:
         raise ValueError("chunk_scan_bench needs a CUDA tensor")
     if (x.dtype != torch.float32 or x.shape != (CHUNK, NPX)
-            or not x.is_contiguous()):
-        raise ValueError(f"x must be contiguous f32 ({CHUNK}, {NPX}), got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    if steps < 0:
-        raise ValueError(f"steps {steps} < 0")
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"x must be contiguous, 16-byte aligned f32 "
+                         f"({CHUNK}, {NPX}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if steps < 0 or ctas <= 0:
+        raise ValueError(f"steps {steps} < 0 or ctas {ctas} <= 0")
     fn = _lib()
+    part = torch.empty((ctas, NPX), dtype=torch.float64, device=x.device)
     out = torch.empty((1, NPX), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), steps, MODES.index(mode), stream)
+    err = fn(x.data_ptr(), part.data_ptr(), out.data_ptr(), steps,
+             MODES.index(mode), ctas, stream)
     if err != 0:
         raise RuntimeError(f"chunk_scan_bench {mode} launch failed: "
                            f"cudaError {err}")
@@ -117,11 +141,11 @@ def chunk_scan_bench_cuda(x: torch.Tensor, *, mode: str,
     return out
 
 
-def chunk_scan_bench(x: torch.Tensor, *, mode: str,
-                     steps: int = STEPS) -> torch.Tensor:
+def chunk_scan_bench(x: torch.Tensor, *, mode: str, steps: int = STEPS,
+                     ctas: int = 1) -> torch.Tensor:
     """Kernel for a CUDA tensor, plain version for a CPU tensor."""
     if x.is_cuda:
-        return chunk_scan_bench_cuda(x, mode=mode, steps=steps)
+        return chunk_scan_bench_cuda(x, mode=mode, steps=steps, ctas=ctas)
     if x.device.type == "cpu":
-        return chunk_scan_bench_plain(x, mode=mode, steps=steps)
+        return chunk_scan_bench_plain(x, mode=mode, steps=steps, ctas=ctas)
     raise ValueError(f"chunk_scan_bench: unsupported device {x.device}")

@@ -1,6 +1,7 @@
 """The bench scene of the backward experiments (scripts/exp_bwd_moments.py
 :232-262 and scripts/exp_bwd_variants.py:42-69): n gaussians in front
-of an identity camera, the composite kernels' inputs and forward output.
+of an identity camera, the composite kernels' inputs, forward output and
+window-entry state.
 
 Draws come from np.random.RandomState(seed) in the scripts' order
 (means x, y, z; scales; opacities; colours; then the cotangents), so the
@@ -28,6 +29,7 @@ class BenchScene(NamedTuple):
     binning: TileBinning
     fwd_out: torch.Tensor
     gout: torch.Tensor
+    state: torch.Tensor
     kw: dict  # tile, chunk, n_tiles_x, n_tiles_y, grad_cap
 
     @property
@@ -35,7 +37,7 @@ class BenchScene(NamedTuple):
         """The backward kernels' positional arguments."""
         b = self.binning
         return (self.feats, b.tile_offsets, b.grad_offsets, self.fwd_out,
-                self.gout)
+                self.gout, self.state)
 
 
 def scene_draws(n: int, seed: int):
@@ -55,8 +57,9 @@ def scene_draws(n: int, seed: int):
 
 def bench_scene(device, *, n: int = N, hw: int = HW, seed: int = 0,
                 gout: str = "rand") -> BenchScene:
-    """preprocess -> bin_gaussians -> _gather_feats -> composite_fwd on
-    `device`. gout "rand": rand * 0.1 with rows 4-7 zeroed
+    """preprocess -> bin_gaussians -> _gather_feats -> composite_fwd (with
+    the window-entry state) on `device`. gout "rand": rand * 0.1 with
+    rows 4-7 zeroed
     (exp_bwd_moments.py); "ones" (exp_bwd_variants.py)."""
     arrays, rng = scene_draws(n, seed)
     ntx = nty = -(-hw // TILE)
@@ -71,7 +74,9 @@ def bench_scene(device, *, n: int = N, hw: int = HW, seed: int = 0,
     feats = _gather_feats(b, g.means2d, g.conics, g.colors, g.opacities,
                           CHUNK)
     kw = dict(tile=TILE, chunk=CHUNK, n_tiles_x=ntx, n_tiles_y=nty)
-    fwd = composite_fwd(feats, b.tile_offsets, **kw)
+    fwd, state = composite_fwd(feats, b.tile_offsets,
+                               grad_offsets=b.grad_offsets,
+                               grad_cap=b.pair_slot_capacity, **kw)
     npx = TILE * TILE
     if gout == "rand":
         g_np = rng.rand(ntx * nty, 8, npx).astype(np.float32) * 0.1
@@ -81,7 +86,7 @@ def bench_scene(device, *, n: int = N, hw: int = HW, seed: int = 0,
     else:
         raise ValueError(f"gout {gout!r}: 'rand' or 'ones'")
     return BenchScene(feats, b, fwd, torch.from_numpy(g_np).to(device),
-                      dict(kw, grad_cap=b.pair_slot_capacity))
+                      state, dict(kw, grad_cap=b.pair_slot_capacity))
 
 
 def written_slots(binning: TileBinning) -> torch.Tensor:

@@ -37,7 +37,7 @@ from sings_tpu_torch.scripts import _scene
 from sings_tpu_torch.scripts import exp_bwd_moments as t_moments
 from sings_tpu_torch.scripts import exp_bwd_variants as t_variants
 from test_torch_rasterizer_bwd import (
-    GLUE, _bwd_inputs, _glue_read_slots, _grad_close,
+    GLUE, _bwd_inputs, _glue_read_slots, _grad_close, entry_state,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,7 +123,8 @@ def scene_refs(name, jax_moments):
             mom = np.asarray(jax_moments(*args, chunk=8, grad_cap=cap,
                                          **kw))
         slots = _glue_read_slots(b)
-        _CACHE[name] = (args, dict(kw, chunk=8, grad_cap=cap),
+        _CACHE[name] = (args + (entry_state(feats, b, kw),),
+                        dict(kw, chunk=8, grad_cap=cap),
                         slots[slots < cap - 1], ref, mom)
     return _CACHE[name]
 
@@ -174,7 +175,8 @@ def test_v2_is_v4_and_saturating_scene_saturates(jax_moments):
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     b, feats, fwd, gout, kw = _bwd_inputs()
-    args = _torch_args((feats, b.tile_offsets, b.grad_offsets, fwd, gout))
+    args = _torch_args((feats, b.tile_offsets, b.grad_offsets, fwd, gout,
+                        entry_state(feats, b, kw)))
     kw = dict(kw, chunk=8, grad_cap=b.pair_slot_capacity)
     tv.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
@@ -213,15 +215,35 @@ def test_bench_scene_matches_jax():
     assert bool((ones.gout == 1).all()) and ones.kw["chunk"] == 128
 
 
+# the entry points' bench scene cut to 200 gaussians at 32x32 (4 tiles,
+# 275 pairs, a tile of 2 windows): each test runs ~150 plain backwards
+ENTRY_ARGS = ["--device", "cpu", "--n", "200", "--hw", "32"]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test's torch ops on one thread. The entry points time
+    ~150 plain backwards of a few thousand small ops each; with the
+    suite's parallel workers each holding a full thread pool, every
+    op's parallel region waits on oversubscribed cores (a second alone
+    took minutes in the parallel suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_exp_bwd_moments_entry_point():
-    out = t_moments.main(["--device", "cpu", "--n", "300", "--hw", "64"])
+    out = t_moments.main(ENTRY_ARGS)
     assert out["device"] == "cpu" and out["pairs"] > 100
     assert out["max_abs_diff"] < 2e-4 * max(out["scale"], 1.0)
     assert out["composite_bwd_ms"] > 0 and out["composite_bwd_moments_ms"] > 0
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_exp_bwd_variants_entry_point():
-    out = t_variants.main(["--device", "cpu", "--n", "300", "--hw", "64"])
+    out = t_variants.main(ENTRY_ARGS)
     assert sorted(out["ms"]) == sorted(tv.VARIANTS)
     assert all(t > 0 for t in out["ms"].values())
     assert out["composite_bwd_ms"] > 0

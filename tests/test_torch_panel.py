@@ -101,8 +101,12 @@ def check_against_pallas(case):
     gw = np.asarray(jpk.composite_bwd_panel(
         feats, b.tile_offsets, b.grad_offsets, jnp.asarray(want),
         jnp.asarray(gout), grad_cap=cap, interpret=True, **bwd_kw))
+    _, state = tk.composite_fwd(_t(feats), _t(b.tile_offsets),
+                                grad_offsets=_t(b.grad_offsets),
+                                grad_cap=cap, **kw)
     gt = tk.composite_bwd(_t(feats), _t(b.tile_offsets), _t(b.grad_offsets),
-                          _t(want), _t(gout), grad_cap=cap, **bwd_kw).numpy()
+                          _t(want), _t(gout), state, grad_cap=cap,
+                          **bwd_kw).numpy()
     assert gt.shape == (9, cap)
     slots = np.unique(np.concatenate([np.asarray(b.main_slot).ravel(),
                                       np.asarray(b.tail_slot).ravel()]))
@@ -130,17 +134,20 @@ def test_panel_plain_equals_tiled_plain(case):
     b, feats, kw = _panel_inputs(case)
     f, o = _t(feats), _t(b.tile_offsets)
     tkw = {k: kw[k] for k in ("tile", "chunk", "n_tiles_x", "n_tiles_y")}
-    tiled = tk.composite_fwd_plain(f, o, **tkw)
-    panel = tk.composite_fwd_plain(f, o, **kw)
+    g_offs, cap = _t(b.grad_offsets), b.pair_slot_capacity
+    tiled, state = tk.composite_fwd_plain(f, o, grad_offsets=g_offs,
+                                          grad_cap=cap, **tkw)
+    panel, state_p = tk.composite_fwd_plain(f, o, grad_offsets=g_offs,
+                                            grad_cap=cap, **kw)
+    assert torch.equal(state, state_p)
     lay = {k: kw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
     assert torch.equal(panel, tk.tiles_to_planes(tiled, pw=kw["pw"], **lay))
     assert torch.equal(tk.planes_to_tiles(panel, **lay)[:, :4], tiled[:, :4])
     gout = torch.randn(panel.shape, generator=torch.Generator().manual_seed(0))
-    cap = b.pair_slot_capacity
     g_panel = tk.composite_bwd_plain(
-        f, o, _t(b.grad_offsets), panel, gout, grad_cap=cap, **kw)
+        f, o, g_offs, panel, gout, state, grad_cap=cap, **kw)
     g_tiled = tk.composite_bwd_plain(
-        f, o, _t(b.grad_offsets), tiled, tk.planes_to_tiles(gout, **lay),
+        f, o, g_offs, tiled, tk.planes_to_tiles(gout, **lay), state,
         grad_cap=cap, **tkw)
     assert torch.equal(g_panel, g_tiled)
 
@@ -154,10 +161,17 @@ def test_unknown_layout_and_cuda_wrappers_refuse():
     f, o = _t(feats), _t(b.tile_offsets)
     with pytest.raises(ValueError, match="CUDA"):
         tk.composite_fwd_cuda(f, o, **kw)
-    planes = tk.composite_fwd(f, o, **kw)
+    cap = b.pair_slot_capacity
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.composite_fwd_cuda(f, o, grad_offsets=_t(b.grad_offsets),
+                              grad_cap=cap, **kw)
+    planes, state = tk.composite_fwd(f, o, grad_offsets=_t(b.grad_offsets),
+                                     grad_cap=cap, **kw)
     assert planes.shape == tk.out_shape(**{k: v for k, v in kw.items()
                                            if k != "chunk"})
+    assert state.shape == tk.state_shape(grad_cap=cap, chunk=kw["chunk"],
+                                         tile=kw["tile"])
     with pytest.raises(ValueError, match="CUDA"):
         tk.composite_bwd_cuda(f, o, _t(b.grad_offsets), planes, planes,
-                              grad_cap=b.pair_slot_capacity, **kw)
+                              state, grad_cap=cap, **kw)
     assert tk.LAUNCHES["composite_fwd_panel"] == 0

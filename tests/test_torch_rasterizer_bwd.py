@@ -78,6 +78,15 @@ def _bwd_inputs(n=80, h=40, w=56, seed=0, max_span=5, pair_cap=None):
     return b, feats, fwd, jnp.asarray(gout), kw
 
 
+def entry_state(feats, b, kw, chunk=8):
+    """The port's plain forward's window-entry state of JAX inputs: the
+    backward's starting point."""
+    t = lambda x: torch.tensor(np.array(x))  # noqa: E731
+    return tk.composite_fwd_plain(
+        t(feats), t(b.tile_offsets), grad_offsets=t(b.grad_offsets),
+        grad_cap=b.pair_slot_capacity, chunk=chunk, **kw)[1]
+
+
 def _glue_read_slots(b):
     slots = np.concatenate([np.asarray(b.main_slot).ravel(),
                             np.asarray(b.tail_slot).ravel()])
@@ -96,7 +105,8 @@ def test_composite_bwd_plain_matches_pallas_interpret(case):
     t = lambda x: torch.tensor(np.array(x))  # noqa: E731
     got = tk.composite_bwd_plain(t(feats), t(b.tile_offsets),
                                  t(b.grad_offsets), t(fwd), t(gout),
-                                 chunk=8, grad_cap=cap, **kw).numpy()
+                                 entry_state(feats, b, kw), chunk=8,
+                                 grad_cap=cap, **kw).numpy()
     assert got.shape == (9, cap)
     slots = _glue_read_slots(b)
     assert cap - 1 in slots and slots.size > 100
@@ -174,7 +184,8 @@ def test_saturated_stack_gradients():
 def test_cuda_wrapper_refuses_cpu_tensors():
     b, feats, fwd, gout, kw = _bwd_inputs()
     t = lambda x: torch.tensor(np.array(x))  # noqa: E731
-    args = (t(feats), t(b.tile_offsets), t(b.grad_offsets), t(fwd), t(gout))
+    args = (t(feats), t(b.tile_offsets), t(b.grad_offsets), t(fwd), t(gout),
+            entry_state(feats, b, kw))
     with pytest.raises(ValueError, match="CUDA"):
         tk.composite_bwd_cuda(*args, chunk=8, grad_cap=b.pair_slot_capacity,
                               **kw)
