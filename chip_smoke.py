@@ -27,21 +27,25 @@ exp_bwd_variants} at their own sizes. Phases:
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
                 Trainer(mode="anim")
-  4 kernels     composite_fwd against its plain version on frame 0's
-                real inputs and on edge scenes; its window-entry state
-                (grad_offsets=) against the plain version's, the output
-                unchanged by it; the panel kernels and their state
-                against theirs and, bit for bit, against the tiled
-                kernels on frame 0 and on panel edge scenes (56x40 and
-                600 wide: padding sub-tiles; a saturating stack)
+  4 kernels     composite_fwd in both layouts, with and without keeping
+                its window-entry state, against its plain version
+                (output and state) on frame 0's real inputs and on edge
+                scenes (padding tiles, empty tiles, a deep stack of one
+                tile of >= 40 windows that saturates mid-segment, a
+                scene of single-window tiles, a saturating stack), the
+                output unchanged by keeping the state, the panel planes
+                and state bit for bit the tiled ones; the panel backward
+                against its plain version and the tiled one on frame 0
+                and on panel edge scenes (56x40 and 600 wide: padding
+                sub-tiles; the saturating stack)
   5 main        animate_chunk(16 frames a chunk, 32 frames); counts
                 composite_fwd launches from 0; then the same 32 frames
                 with tpu.raster.layout=panel, equal to the tiled ones
                 (uint8, exact), counting composite_fwd_panel launches;
                 neither animation writes the window-entry state
-  6 timing      CUDA-event times of composite_fwd (with and without the
-                state) and its plain version, and the least time the
-                card could take for the same work
+  6 timing      CUDA-event times of composite_fwd (in turns without and
+                with keeping the state) and its plain version, and the
+                least time the card could take for the same work
   7 train setup config + HUMAN_COMPLEX_TRAIN_DOTLIST (the recipe's loss,
                 LR and schedule keys) + what bench.py sets, an in-memory
                 9-frame 512x512 kit (8 training frames) whose masks and
@@ -77,8 +81,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 collapse and the panel kernels' launch counts (train()
                 and the whole CLI call) checked
  12 timing      on the trained avatar the CLI leaves (its first training
-                frame, the loss's cotangents): both panel kernels
-                against their plain versions and the tiled kernels, their
+                frame, the loss's cotangents): the forward as in phase 4
+                and the panel backward against its plain version and the
+                tiled one; both panel kernels' and their
                 CUDA-event times against their plain versions' and
                 their bounds, the tiled kernels' on the same inputs, the
                 forward's with the state; the tile load; the host-clock
@@ -101,8 +106,12 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame and on phase 12's trained-avatar frame (in those
                 phases, with the loss's cotangents): each against its
                 plain version, its gap to composite_bwd reported
-Every failure raises; the script exits 0 only when every phase passed,
-and then prints the kernels line and, last, the device line.
+With --profile, stage tables and torch.profiler kernel tables of an
+animation frame (after phase 6) and of a training step (after phase
+10); each profiled stage that launches a composite kernel must show
+that kernel's device time. Every failure raises; the script exits 0
+only when every phase passed, and then prints the kernels line and,
+last, the device line.
 """
 from __future__ import annotations
 
@@ -245,8 +254,10 @@ ATOL = 1e-4
 MAX_FLIP_FRACTION = 1e-5
 FLIP_ATOL = 5e-2
 SEED = 0
-# largest kernel-vs-plain error of each panel kernel over every check
-PANEL_ERRS = {"composite_fwd_panel": 0.0, "composite_bwd_panel": 0.0}
+# largest kernel-vs-plain error of the forward in each layout and of the
+# panel backward over every check (check_fwd, check_panel)
+KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
+               "composite_bwd_panel": 0.0}
 # the CUDA sources, each one kernel for both layouts
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
            "chunk_scan_bench"]
@@ -407,87 +418,135 @@ def to_planes(tiles, ckw: dict, t_pad: float):
     return planes.contiguous()
 
 
-def check_panel(name: str, feats, binning, ckw: dict, gout_planes) -> tuple:
-    """Both panel kernels against their plain versions, and bit for bit
-    against the tiled kernels on the same inputs relaid out. Returns
-    (forward max error, backward max error)."""
+def note_err(name: str, err: float) -> None:
+    KERNEL_ERRS[name] = max(KERNEL_ERRS[name], err)
+
+
+def check_fwd(name: str, feats, binning, ckw: dict) -> tuple:
+    """composite_fwd in both layouts, with and without the window-entry
+    state, against the plain versions: the output and the state's rows
+    of a tile (check_close); each layout's output unchanged by keeping
+    the state; the panel planes (padding sub-tiles colour 0, T = 1) and
+    state bit for bit the tiled ones. Returns the tiled and the panel
+    (output, state)."""
     from sings_tpu_torch.ops.rasterizer import kernels as K
 
-    pkw = panel_kw(ckw)
-    lay = {k: ckw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
     offs = binning.tile_offsets
-    cap = binning.pair_slot_capacity
-    skw = dict(grad_offsets=binning.grad_offsets, grad_cap=cap)
-    fwd_t, st_t = K.composite_fwd_cuda(feats, offs, **skw, **ckw)
-    fwd_p, st_p = K.composite_fwd_cuda(feats, offs, **skw, **pkw)
-    torch.cuda.synchronize()
-    want_p, want_st = K.composite_fwd_plain(feats, offs, **skw, **pkw)
+    skw = dict(grad_offsets=binning.grad_offsets,
+               grad_cap=binning.pair_slot_capacity)
     nw = used_windows(binning, ckw["chunk"])
-    err_f = check_close(f"composite_fwd_panel {name}", fwd_p, want_p)
-    err_f = max(err_f, check_close(f"composite_fwd_panel state {name}",
-                                   st_p[:nw], want_st[:nw]))
-    if not torch.equal(fwd_p, K.tiles_to_planes(fwd_t, pw=pkw["pw"],
-                                                **lay)):
+    res = {}
+    for key, kw in (("composite_fwd", ckw), ("composite_fwd_panel",
+                                             panel_kw(ckw))):
+        out, st = K.composite_fwd_cuda(feats, offs, **skw, **kw)
+        bare = K.composite_fwd_cuda(feats, offs, return_state=False, **skw,
+                                    **kw)
+        torch.cuda.synchronize()
+        want, want_st = K.composite_fwd_plain(feats, offs, **skw, **kw)
+        note_err(key, max(check_close(f"{key} {name}", out, want),
+                          check_close(f"{key} state {name}", st[:nw],
+                                      want_st[:nw])))
+        if not torch.equal(bare, out):
+            raise AssertionError(f"{name}: keeping the state changed {key}")
+        res[key] = (out, st)
+    (fwd_t, st_t), (fwd_p, st_p) = res.values()
+    lay = {k: ckw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
+    if not torch.equal(fwd_p, K.tiles_to_planes(
+            fwd_t, pw=K.panel_width(ckw["tile"]), **lay)):
         raise AssertionError(f"{name}: composite_fwd_panel is not bitwise "
                              "equal to composite_fwd relaid out")
     if not torch.equal(st_p[:nw], st_t[:nw]):
         raise AssertionError(f"{name}: the panel forward's state is not "
                              "bitwise equal to the tiled forward's")
+    log(f"[kernels] composite_fwd {name}: both layouts, with and without "
+        f"the state; panel bitwise equal to tiled; {tile_load(binning)}")
+    return res["composite_fwd"], res["composite_fwd_panel"]
+
+
+def check_panel(name: str, feats, binning, ckw: dict, gout_planes):
+    """check_fwd, then the panel backward against its plain version and
+    bit for bit against the tiled backward on the same inputs relaid
+    out. Returns the tiled forward's output."""
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    (fwd_t, st_t), (fwd_p, st_p) = check_fwd(name, feats, binning, ckw)
+    pkw = panel_kw(ckw)
+    lay = {k: ckw[k] for k in ("tile", "n_tiles_x", "n_tiles_y")}
+    offs = binning.tile_offsets
+    cap = binning.pair_slot_capacity
     # the rows past the tiles' windows are never read: poison them in
     # the tiled backward's state, which must still match the panel's
-    st_t[nw:] = float("nan")
-    edge = ckw["n_tiles_x"] * ckw["tile"]
-    if fwd_p.shape[2] > edge and not (
-            bool((fwd_p[:3, :, edge:] == 0).all())
-            and bool((fwd_p[3, :, edge:] == 1).all())):
-        raise AssertionError(f"{name}: padding sub-tiles not colour 0, T 1")
+    st_t[used_windows(binning, ckw["chunk"]):] = float("nan")
     args = (feats, offs, binning.grad_offsets)
     g_p = K.composite_bwd_cuda(*args, fwd_p, gout_planes, st_p,
                                grad_cap=cap, **pkw)
     g_t = K.composite_bwd_cuda(*args, fwd_t, K.planes_to_tiles(
         gout_planes, **lay).contiguous(), st_t, grad_cap=cap, **ckw)
     torch.cuda.synchronize()
-    err_b = check_bwd(f"panel {name}", g_p, K.composite_bwd_plain(
-        *args, fwd_p, gout_planes, st_p, grad_cap=cap, **pkw), binning)
+    note_err("composite_bwd_panel", check_bwd(
+        f"panel {name}", g_p, K.composite_bwd_plain(
+            *args, fwd_p, gout_planes, st_p, grad_cap=cap, **pkw), binning))
     if not torch.equal(g_p, g_t):
         raise AssertionError(f"{name}: composite_bwd_panel is not bitwise "
                              "equal to composite_bwd")
-    log(f"[kernels] panel {name}: planes {tuple(fwd_p.shape)}, bitwise "
-        "equal to the tiled kernels (forward, its state and backward)")
-    return err_f, err_b
+    log(f"[kernels] panel {name}: planes {tuple(fwd_p.shape)}, the backward "
+        "bitwise equal to the tiled one")
+    return fwd_t
 
 
-def panel_edge_scenes(dev, ekw) -> tuple:
-    """56x40 (ntx 4 < pw 8) and 600x200 (ntx 38, Wp 640): padding
-    sub-tiles; a 300-deep saturating stack: early exit."""
-    errs = []
-    for seed, (h, w) in ((21, (40, 56)), (22, (200, 600))):
-        g, cam = random_scene(300, h, w, seed, dev)
-        feats, b, ckw = composite_inputs(g, cam, ekw)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        gout = torch.randn((4,) + tuple(panel_shape(ckw)), generator=gen,
-                           device=dev)
-        errs.append(check_panel(f"{w}x{h} padding sub-tiles", feats, b, ckw,
-                                gout))
-    n = 300
+def saturating_stack(dev, n: int = 300):
+    """n opaque splats (0.95) stacked in depth over the middle of a 64x64
+    camera: every pixel there saturates within the first window."""
     stack = [torch.tensor([[0.0, 0.0, 3.0]]).repeat(n, 1),
              torch.full((n, 3), 0.2),
              torch.tensor([[1.0, 0, 0, 0]]).repeat(n, 1),
              torch.full((n,), 0.95),
              torch.rand(n, 3, generator=torch.Generator().manual_seed(2))]
     stack[0][:, 2] += torch.linspace(0, 0.5, n)
-    stack = [t.to(dev) for t in stack]
-    cam = random_scene(1, 64, 64, 0, dev)[1]
-    feats, b, ckw = composite_inputs(stack, cam, ekw)
+    return [t.to(dev) for t in stack], random_scene(1, 64, 64, 0, dev)[1]
+
+
+def deep_stack(dev, n: int = 6000):
+    """n faint splats (opacity 0.005-0.008, sigma ~3 px) stacked in depth
+    inside one tile of a 64x64 camera: one tile of n / 128 >= 40
+    windows, whose middle pixels saturate mid-segment (alpha ~0.008:
+    T reaches 1e-4 after ~1,150 pairs) while its edge pixels skip every
+    pair."""
+    g = torch.Generator().manual_seed(4)
+    means = torch.tensor([[0.3, 0.3, 3.0]]).repeat(n, 1)
+    means[:, :2] += 0.01 * torch.randn(n, 2, generator=g)
+    means[:, 2] += torch.linspace(0, 0.5, n)
+    stack = [means, torch.full((n, 3), 0.15),
+             torch.tensor([[1.0, 0, 0, 0]]).repeat(n, 1),
+             0.005 + 0.003 * torch.rand(n, generator=g),
+             torch.rand(n, 3, generator=g)]
+    return [t.to(dev) for t in stack], random_scene(1, 64, 64, 0, dev)[1]
+
+
+def sparse_scene(dev, n: int = 4000):
+    """n sub-pixel splats spread over a 512x512 camera: a few pairs in
+    each tile, so nearly every busy tile is a single window."""
+    g, cam = random_scene(n, 512, 512, 5, dev, spread=0.8)
+    g[1] = g[1] * 0.04
+    return g, cam
+
+
+def panel_edge_scenes(dev, ekw) -> None:
+    """56x40 (ntx 4 < pw 8) and 600x200 (ntx 38, Wp 640): padding
+    sub-tiles; a 300-deep saturating stack, which must saturate."""
+    for seed, (h, w) in ((21, (40, 56)), (22, (200, 600))):
+        g, cam = random_scene(300, h, w, seed, dev)
+        feats, b, ckw = composite_inputs(g, cam, ekw)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gout = torch.randn((4,) + tuple(panel_shape(ckw)), generator=gen,
+                           device=dev)
+        check_panel(f"{w}x{h} padding sub-tiles", feats, b, ckw, gout)
+    feats, b, ckw = composite_inputs(*saturating_stack(dev), ekw)
     gout = torch.randn((4,) + tuple(panel_shape(ckw)), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(23))
-    errs.append(check_panel("saturating stack", feats, b, ckw, gout))
-    return max(e[0] for e in errs), max(e[1] for e in errs)
-
-
-def note_panel_errs(errs: tuple) -> None:
-    for name, err in zip(PANEL_ERRS, errs):
-        PANEL_ERRS[name] = max(PANEL_ERRS[name], err)
+    out = check_panel("saturating stack", feats, b, ckw, gout)
+    if float(out[:, 3].min()) >= 1e-3:
+        raise AssertionError("saturating stack did not saturate")
 
 
 def panel_shape(ckw: dict) -> tuple:
@@ -601,67 +660,51 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         log(f"[kernels] frame 0: feats {tuple(feats.shape)}, tiles "
             f"{ckw['n_tiles_x'] * ckw['n_tiles_y']}, pairs {n_pairs}, "
             f"overflow {overflow}")
-        got = K.composite_fwd_cuda(feats, binning.tile_offsets, **ckw)
-        want, walked = K.composite_fwd_plain(feats, binning.tile_offsets,
-                                             return_walked=True, **ckw)
-        torch.cuda.synchronize()
-        max_err = check_close("full width frame 0", got, want)
-        # the window-entry state the training step asks for
+        offs = binning.tile_offsets
         skw = dict(grad_offsets=binning.grad_offsets,
                    grad_cap=binning.pair_slot_capacity)
-        got_s, st = K.composite_fwd_cuda(feats, binning.tile_offsets,
-                                         **skw, **ckw)
-        want_st = K.composite_fwd_plain(feats, binning.tile_offsets,
-                                        **skw, **ckw)[1]
-        torch.cuda.synchronize()
-        if not torch.equal(got_s, got):
-            raise AssertionError("writing the state changed the forward")
-        nw = used_windows(binning, ckw["chunk"])
-        max_err = max(max_err, check_close("full width frame 0 state",
-                                           st[:nw], want_st[:nw]))
-        log(f"[kernels] frame 0 state {tuple(st.shape)}: "
-            f"{int((st[:nw, 0].amax(dim=1) > 0).sum())} of {nw} windows "
-            f"entered, {tile_load(binning)}")
-        # edge scenes
-        ekw = dict(kw, max_span=8, pair_cap=None)
-        g, cam = random_scene(400, 380, 500, 1, dev)
-        f_, b_, c_ = composite_inputs(g, cam, ekw)
-        max_err = max(max_err, check_close(
-            "500x380 padding tiles", K.composite_fwd_cuda(
-                f_, b_.tile_offsets, **c_),
-            K.composite_fwd_plain(f_, b_.tile_offsets, **c_)))
-        n = 300
-        stack = [torch.tensor([[0.0, 0.0, 3.0]]).repeat(n, 1),
-                 torch.full((n, 3), 0.2), torch.tensor([[1.0, 0, 0, 0]]
-                                                       ).repeat(n, 1),
-                 torch.full((n,), 0.95), torch.rand(n, 3, generator=(
-                     torch.Generator().manual_seed(2)))]
-        stack[0][:, 2] += torch.linspace(0, 0.5, n)
-        stack = [t.to(dev) for t in stack]
-        cam = random_scene(1, 64, 64, 0, dev)[1]
-        f_, b_, c_ = composite_inputs(stack, cam, ekw)
-        out_s = K.composite_fwd_cuda(f_, b_.tile_offsets, **c_)
-        max_err = max(max_err, check_close(
-            "saturating stack", out_s,
-            K.composite_fwd_plain(f_, b_.tile_offsets, **c_)))
-        if float(out_s[:, 3].min()) >= 1e-3:
-            raise AssertionError("saturating stack did not saturate")
-        g, cam = random_scene(200, 64, 96, 3, dev, z=(-4.0, -1.0))
-        g[0][:5] = torch.tensor([[0.3, 0.2, 3.0]], device=dev)  # one corner
-        f_, b_, c_ = composite_inputs(g, cam, ekw)
-        out_e = K.composite_fwd_cuda(f_, b_.tile_offsets, **c_)
-        max_err = max(max_err, check_close(
-            "empty tiles", out_e,
-            K.composite_fwd_plain(f_, b_.tile_offsets, **c_)))
-        if float(out_e[:, 3].amin(dim=1).max()) != 1.0:
-            raise AssertionError("empty tiles must keep T == 1")
-        # the panel kernels on frame 0 (random cotangents: the animation
-        # has none) and on the panel edge scenes
+        want, walked = K.composite_fwd_plain(feats, offs,
+                                             return_walked=True, **ckw)
+        # both layouts, with and without the state (the training step's
+        # window-entry state), on frame 0 (random cotangents for the
+        # panel backward: the animation has none) and on edge scenes
         gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-        note_panel_errs(check_panel(
-            "full width frame 0", feats, binning, ckw, torch.randn(
-                (4,) + tuple(panel_shape(ckw)), generator=gen, device=dev)))
-        note_panel_errs(panel_edge_scenes(dev, ekw))
+        check_panel("full width frame 0", feats, binning, ckw, torch.randn(
+            (4,) + tuple(panel_shape(ckw)), generator=gen, device=dev))
+        ekw = dict(kw, max_span=8, pair_cap=None)
+        empty = random_scene(200, 64, 96, 3, dev, z=(-4.0, -1.0))
+        empty[0][0][:5] = torch.tensor([[0.3, 0.2, 3.0]], device=dev)
+        for name, scene in (
+                ("500x380 padding tiles", random_scene(400, 380, 500, 1,
+                                                       dev)),
+                ("empty tiles", empty), ("deep stack", deep_stack(dev)),
+                ("single-window tiles", sparse_scene(dev))):
+            f_, b_, c_ = composite_inputs(*scene, ekw)
+            (out_t, st_t), _ = check_fwd(name, f_, b_, c_)
+            wins = (b_.grad_offsets[1:] - b_.grad_offsets[:-1]) // c_["chunk"]
+            if name == "empty tiles" and float(
+                    out_t[:, 3].amin(dim=1).max()) != 1.0:
+                raise AssertionError("empty tiles must keep T == 1")
+            if name == "deep stack":
+                # the deepest tile's T at each window's top, its least
+                # over the pixels: saturated before its last window
+                t = int(torch.argmax(wins))
+                g0 = int(b_.grad_offsets[t]) // c_["chunk"]
+                tops = st_t[g0:g0 + int(wins[t]), 0].amin(dim=1)
+                sat = int((tops < 2e-4).nonzero()[0]) if bool(
+                    (tops < 2e-4).any()) else -1
+                log(f"[kernels] deep stack: tile {t} of {int(wins[t])} "
+                    f"windows saturates at window {sat}")
+                if int(wins[t]) < 40 or not 0 < sat < int(wins[t]) - 1:
+                    raise AssertionError("deep stack: no tile of >= 40 "
+                                         "windows saturating mid-segment")
+            if name == "single-window tiles":
+                busy = wins[wins > 0]
+                log(f"[kernels] single-window tiles: {int((busy == 1).sum())}"
+                    f" of {busy.numel()} busy tiles hold one window")
+                if not (busy == 1).float().mean() >= 0.8:
+                    raise AssertionError("single-window tiles: too few")
+        panel_edge_scenes(dev, ekw)
 
         # the whole frame through the plain version, for phase 5
         color, t_final = tiles_to_image(want, RasterConfig(
@@ -732,51 +775,31 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         raise AssertionError(f"panel animation launches {panel_launches}, "
                              "expected 32 composite_fwd_panel and 0 tiled")
 
-    # ---- 6 timing at frame 0's shapes
-    offs = binning.tile_offsets
-    ms = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
-    ms_state = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **skw,
-                                                    **ckw))
-    ms_again = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
-    # a zero-fill of the state buffer (the wrapper leaves it unfilled:
-    # the fill and what it evicted from L2 cost 9% in a first design),
-    # and the launch alone into preallocated buffers, with and without
-    # the state
-    st_shape = K.state_shape(grad_cap=skw["grad_cap"], chunk=ckw["chunk"],
-                             tile=ckw["tile"])
-    zero_ms = cuda_ms(lambda: torch.zeros(st_shape, device=dev))
-    st_buf = torch.zeros(st_shape, device=dev)
-    out_buf = torch.empty_like(want)
-
-    def launch_only(state):
-        K._lib()(feats.data_ptr(), feats.stride(0), offs.data_ptr(),
-                 skw["grad_offsets"].data_ptr() if state else None,
-                 st_buf.data_ptr() if state else None, out_buf.data_ptr(),
-                 ckw["n_tiles_y"], ckw["n_tiles_x"], ckw["tile"],
-                 ckw["chunk"], 0, torch.cuda.current_stream().cuda_stream)
-
-    raw_ms = [cuda_ms(lambda: launch_only(x)) for x in (False, True, False,
-                                                         True)]
+    # ---- 6 timing at frame 0's shapes, in turns without / with / with /
+    # without keeping the state
+    turns = [cuda_ms(lambda: K.composite_fwd_cuda(
+        feats, offs, return_state=keep, **skw, **ckw))
+        for keep in (False, True, True, False)]
+    ms, ms_state = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = cuda_ms(lambda: K.composite_fwd_plain(feats, offs, **ckw))
     n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
     npx = ckw["tile"] ** 2
     ops = OPS_PER_PAIR_PIXEL * walked * npx
-    nbytes = 4 * (9 * walked + (n_tiles + 1) + n_tiles * 8 * npx)
+    # walked feats rows, both offset tables, the output
+    nbytes = 4 * (9 * walked + 2 * (n_tiles + 1) + n_tiles * 8 * npx)
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    log(f"[timing] composite_fwd {ms:.4f} ms ({ms_again:.4f} ms after "
-        f"the next), with the state {ms_state:.4f} ms (its zero-fill alone "
-        f"{zero_ms:.4f} ms; the launch alone without / with the state, "
-        f"twice: {', '.join(f'{t:.4f}' for t in raw_ms)} ms), plain "
+    log(f"[timing] composite_fwd without / with / with / without keeping "
+        f"the state: {', '.join(f'{t:.4f}' for t in turns)} ms, plain "
         f"{plain_ms:.3f} ms, walked pairs {walked} of {n_pairs}, bound "
         f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)"
-        f" | {smi}")
+        f", {tile_load(binning)} | {smi}")
     kernels = [{
         "name": "composite_fwd", "route": "cuda",
         "source": "sings_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "sings_tpu/ops/rasterizer/pallas_kernels.py:873",
-        "launches": launches["composite_fwd"], "max_abs_err": max_err,
+        "launches": launches["composite_fwd"], "max_abs_err": None,
         "ms": ms, "kernel_ms": ms, "ms_with_state": ms_state,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -784,19 +807,73 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     }]
     if profile_dir:
         profile(trainer, gs_attrs, frame0, kw, profile_dir)
-    del trainer, gs_attrs, posed, frame0, feats, binning, want, got, st
-    del st_buf, out_buf
+    del trainer, gs_attrs, posed, frame0, feats, binning, want
     torch.cuda.empty_cache()
     kernels.extend(run_train(work, dev, smi, profile_dir))
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
     kernels.extend(run_scan(dev, smi))
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
+    for row in kernels:
+        if row["name"] in KERNEL_ERRS:
+            row["max_abs_err"] = KERNEL_ERRS[row["name"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the composite kernels by the profiler's (demangled) kernel names
+COMPOSITE_KERNELS = {"composite_fwd": "fwd_window_kernel",
+                     "composite_bwd": "bwd_kernel<(anonymous namespace)"
+                                      "::Production>"}
+
+
+# In the training context torch.profiler (CUPTI) drops the first kernel
+# records of each session: a stage of two kernels (composite_bwd's zero
+# fill and the kernel) showed no device time (PERF.md section 7). Every
+# profiled call therefore runs after PREAMBLE spin kernels of its own,
+# which the sums leave out and whose records the tables count.
+PREAMBLE = 4
+SPIN = "spin_kernel"
+
+
+def profiled(fn) -> tuple:
+    """One call of fn under torch.profiler, after the preamble: the
+    device time (ms) of the kernels it launched, that of the composite
+    kernels among them by name, the preamble kernels seen, and the
+    profile."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PREAMBLE):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(e.count for e in evs if SPIN in e.key)
+    evs = [e for e in evs if SPIN not in e.key]
+    comp = {name: sum(e.self_device_time_total for e in evs if key in e.key)
+            / 1e3 for name, key in COMPOSITE_KERNELS.items()}
+    return (sum(e.self_device_time_total for e in evs) / 1e3, comp, seen,
+            prof)
+
+
+def require_seen(stage: str, comp: dict, names: list, prof,
+                 out_dir: str) -> None:
+    """A profiled stage that launches composite kernels must give each of
+    them device time; if not, its trace goes to out_dir and it raises."""
+    missing = [n for n in names if not comp[n] > 0.0]
+    if missing:
+        path = os.path.join(out_dir, "trace_" + "".join(
+            c if c.isalnum() else "_" for c in stage) + ".json")
+        prof.export_chrome_trace(path)
+        raise AssertionError(f"profile of {stage!r}: no device time for "
+                             f"{missing} (trace: {path})")
 
 
 def profile(trainer, gs_attrs, frame0, kw, out_dir: str) -> None:
@@ -827,7 +904,10 @@ def profile(trainer, gs_attrs, frame0, kw, out_dir: str) -> None:
                           g2d.opacities, rcfg.chunk)
     ckw = dict(tile=rcfg.tile, chunk=rcfg.chunk, n_tiles_x=ntx,
                n_tiles_y=nty)
-    out = K.composite_fwd_cuda(feats, binning.tile_offsets, **ckw)
+    fkw = dict(grad_offsets=binning.grad_offsets,
+               grad_cap=binning.pair_slot_capacity, return_state=False,
+               **ckw)
+    out = K.composite_fwd_cuda(feats, binning.tile_offsets, **fkw)
 
     def finish():
         color, t = tiles_to_image(out, rcfg)
@@ -849,32 +929,25 @@ def profile(trainer, gs_attrs, frame0, kw, out_dir: str) -> None:
                 binning, g2d.means2d, g2d.conics, g2d.colors,
                 g2d.opacities, rcfg.chunk), 1),
             ("composite_fwd kernel", lambda: K.composite_fwd_cuda(
-                feats, binning.tile_offsets, **ckw), 1),
+                feats, binning.tile_offsets, **fkw), 1),
             ("relayout + bg blend + uint8", finish, 1),
             ("whole rasterize() + uint8", lambda: quantize(rasterize(
                 *frame0[:5], cam, sh_degree=3, bg=trainer.bg_color,
                 alive=frame0[5], **trainer.raster_kw)["render"]), 1),
         ]
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-
-        def kernel_ms(fn):
-            """Device time of the kernels one call launches (profiler)."""
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                fn()
-                torch.cuda.synchronize()
-            return sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       ) / 1e3, prof
-
         lines = [f"{'stage':45s} {'events ms':>10s} {'kernels ms':>10s}"
-                 "  per frame (events: 10 back-to-back calls, host issue "
-                 "included; kernels: device time, profiler)"]
+                 f" {'composite':>10s} {'pre':>4s}  per frame (events: 10 "
+                 "back-to-back calls, host issue included; kernels: device "
+                 "time, profiler; composite: the composite kernels' share; "
+                 f"pre: of the {PREAMBLE} preamble kernels, those the "
+                 "profiler recorded)"]
         for name, fn, per in stages:
             t = cuda_ms(fn, n=10) / per
-            d = kernel_ms(fn)[0] / per
-            lines.append(f"{name:45s} {t:10.4f} {d:10.4f}")
+            d, comp, seen, prof = profiled(fn)
+            if "composite" in name or "rasterize" in name:
+                require_seen(name, comp, ["composite_fwd"], prof, out_dir)
+            lines.append(f"{name:45s} {t:10.4f} {d / per:10.4f} "
+                         f"{sum(comp.values()) / per:10.4f} {seen:4d}")
 
         def chunk():
             trainer.animate_chunk(chunk_size=16, max_frames=16,
@@ -888,7 +961,9 @@ def profile(trainer, gs_attrs, frame0, kw, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         K.reset_launches()
-        busy_ms, prof = kernel_ms(chunk)
+        busy_ms, comp, _, prof = profiled(chunk)
+        require_seen("16-frame chunk", comp, ["composite_fwd"], prof,
+                     out_dir)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -1213,16 +1288,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     g, cam = random_scene(400, 380, 500, 1, dev)
     max_err = max(max_err, edge_scene_bwd(dev, ekw, 11, g, cam,
                                           "500x380 padding tiles"))
-    n = 300
-    stack = [torch.tensor([[0.0, 0.0, 3.0]]).repeat(n, 1),
-             torch.full((n, 3), 0.2),
-             torch.tensor([[1.0, 0, 0, 0]]).repeat(n, 1),
-             torch.full((n,), 0.95),
-             torch.rand(n, 3, generator=torch.Generator().manual_seed(2))]
-    stack[0][:, 2] += torch.linspace(0, 0.5, n)
-    stack = [t.to(dev) for t in stack]
-    cam = random_scene(1, 64, 64, 0, dev)[1]
-    max_err = max(max_err, edge_scene_bwd(dev, ekw, 12, stack, cam,
+    max_err = max(max_err, edge_scene_bwd(dev, ekw, 12,
+                                          *saturating_stack(dev),
                                           "saturating stack"))
     g, cam = random_scene(200, 64, 96, 3, dev, z=(-4.0, -1.0))
     g[0][:5] = torch.tensor([[0.3, 0.2, 3.0]], device=dev)
@@ -1241,9 +1308,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     del grads_k, grads_p, got, want
     # the panel kernels on the training frame's own cotangents, and the
     # rasterize gradients in the panel layout
-    note_panel_errs(check_panel("training frame 0 (the loss's "
-                                "cotangents)", feats, binning, ckw,
-                                to_planes(gout, ckw, 0.0)))
+    check_panel("training frame 0 (the loss's cotangents)", feats,
+                binning, ckw, to_planes(gout, ckw, 0.0))
     K.reset_launches()
     loss_k, grads_k = rasterize_grads(trainer, leaves, loss_of, "panel")
     with plain_composites():
@@ -1641,8 +1707,8 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
     pkw = panel_kw(ckw)
     skw = dict(grad_offsets=goffs, grad_cap=cap)
     gout_p = to_planes(gout_t, ckw, 0.0)
-    note_panel_errs(check_panel("train() window's frame (the loss's "
-                                "cotangents)", feats, binning, ckw, gout_p))
+    check_panel("train() window's frame (the loss's cotangents)", feats,
+                binning, ckw, gout_p)
     # the backward's experiment forms on this frame (phase 14's checks)
     forms_on_frame("phase 12 trained-avatar frame",
                    (feats, offs, goffs, fwd_t, gout_t, entry),
@@ -1662,10 +1728,11 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
     rows = []
     for name, fn, plain, ops, nbytes in (
             ("composite_fwd_panel",
-             lambda: K.composite_fwd_cuda(feats, offs, **pkw),
+             lambda: K.composite_fwd_cuda(feats, offs, return_state=False,
+                                          **skw, **pkw),
              lambda: K.composite_fwd_plain(feats, offs, **pkw),
              OPS_PER_PAIR_PIXEL * walked * npx,
-             4 * (9 * walked + (n_tiles + 1) + 4 * hp * wp)),
+             4 * (9 * walked + 2 * (n_tiles + 1) + 4 * hp * wp)),
             ("composite_bwd_panel",
              lambda: K.composite_bwd_cuda(
                  feats, offs, goffs, fwd_p, gout_p, entry_p, grad_cap=cap,
@@ -1692,7 +1759,7 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
                       + name.replace("_panel", "") + ".cu",
             "replaces": "sings_tpu/ops/rasterizer/pallas_kernels.py:"
                         + ("789" if name == "composite_fwd_panel" else "827"),
-            "launches": launches[name], "max_abs_err": PANEL_ERRS[name],
+            "launches": launches[name], "max_abs_err": None,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1701,10 +1768,11 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
     # the forward as the training step runs it, with the state, in turns
     # with the forward without it
     turns = [cuda_ms(lambda: K.composite_fwd_cuda(
-        feats, offs, **(skw if i % 2 == 0 else {}), **pkw))
+        feats, offs, return_state=i % 2 == 0, **skw, **pkw))
         for i in range(4)]
     rows[0]["ms_with_state"] = turns[0]
-    tiled_f = cuda_ms(lambda: K.composite_fwd_cuda(feats, offs, **ckw))
+    tiled_f = cuda_ms(lambda: K.composite_fwd_cuda(
+        feats, offs, return_state=False, **skw, **ckw))
     tiled_b = cuda_ms(lambda: K.composite_bwd_cuda(
         feats, offs, goffs, fwd_t, gout_t, entry, grad_cap=cap, **ckw))
     log(f"[timing] composite_fwd_panel in turns with / without / with / "
@@ -1811,25 +1879,22 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
             TRAIN_STEP0, 0, tr.region_lap, tr.region_lap, tr.lap_pos_w,
             tr.lap_color_w, edge_stat=es)),
     ]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-
-    def kernel_ms(fn):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   ) / 1e3, prof
-
-    lines = [f"{'stage':40s} {'events ms':>10s} {'kernels ms':>10s}"
-             "  (events: 5 back-to-back calls, host issue included; "
-             "kernels: device time, profiler)"]
+    # the composite kernels each stage launches
+    needs = {"rasterize forward": ["composite_fwd"],
+             "composite_bwd kernel": ["composite_bwd"],
+             "whole train_step": ["composite_fwd", "composite_bwd"]}
+    lines = [f"{'stage':40s} {'events ms':>10s} {'kernels ms':>10s} "
+             f"{'composite':>10s} {'pre':>4s}  (events: 5 back-to-back "
+             "calls, host issue included; kernels: device time, profiler; "
+             "composite: the composite kernels' share; pre: of the "
+             f"{PREAMBLE} preamble kernels, those the profiler recorded)"]
     for name, fn in stages:
         t = cuda_ms(fn, n=5, warm=1)
-        d = kernel_ms(fn)[0]
-        lines.append(f"{name:40s} {t:10.4f} {d:10.4f}")
+        d, comp, seen, prof = profiled(fn)
+        if name in needs:
+            require_seen(name, comp, needs[name], prof, out_dir)
+        lines.append(f"{name:40s} {t:10.4f} {d:10.4f} "
+                     f"{sum(comp.values()):10.4f} {seen:4d}")
 
     def chunk():
         out = tr.train_scan(tr.params, tr.buffers, tr.opt_state, tr.cache,
@@ -1842,7 +1907,9 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
     t0 = time.perf_counter()
     chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, prof = kernel_ms(chunk)
+    busy_ms, comp, _, prof = profiled(chunk)
+    require_seen("8-step chunk", comp, ["composite_fwd", "composite_bwd"],
+                 prof, out_dir)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: e.self_device_time_total,

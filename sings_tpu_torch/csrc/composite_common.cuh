@@ -1,6 +1,6 @@
-// Per-pair alpha, termination rule, the two front-to-back walks and the
-// two output layouts, shared by composite_fwd.cu, composite_bwd.cu and
-// composite_bwd_variants.cu.
+// Per-pair alpha, termination rule, the window walks of both directions
+// and the two output layouts, shared by composite_fwd.cu,
+// composite_bwd.cu and composite_bwd_variants.cu.
 // The backward walk stops exactly where the forward walk stopped (a
 // pair near the 1e-4 threshold must not get a gradient that its forward
 // never composited), and both layouts run the same instructions per
@@ -15,17 +15,18 @@
 // composites while T * (1 - alpha) >= 1e-4; the first that fails ends
 // the pixel's walk for the rest of its chunk-aligned window.
 //
-// Window-entry state: the forward can store, at the top of window c of
+// Window-entry state: the forward stores, at the top of window c of
 // tile t (before the tile-exit test), each pixel's transmittance T and
 // colour sums acc_r, acc_g, acc_b in row (g, 0..3) of a (grad_cap /
 // chunk, 4, tile*tile) buffer, g = grad_offsets[t] / chunk + c: the
-// window numbering of the gradient buffer. With it the backward's
-// windows are independent work items (bwd_kernel). At a tile exit the
-// forward writes zeros to the tile's remaining windows, so every window
-// below grad_offsets[T] / chunk, all that the backward reads, is
-// written, and a window the walk never reached holds T = 0 and is
-// skipped, as the walk's exit would skip it; the rows past those are
-// left as they were (the wrapper does not zero-fill the buffer).
+// window numbering of the gradient buffer. The forward's windows hand
+// each other their entry through it (fwd_window_kernel), and with it the
+// backward's windows are independent work items (bwd_kernel). After a
+// tile exit each remaining window of the tile writes zeros to its row,
+// so every window below grad_offsets[T] / chunk, all that the backward
+// reads, is written, and a window the walk never reached holds T = 0
+// and is skipped, as the walk's exit would skip it; the rows past those
+// are left as they were (the wrapper does not zero-fill the buffer).
 //
 // Shared-memory window layout: [row][chunk] with rows 0 mean_x |
 // 1 mean_y | 2..4 conic a, b, c | 5..7 rgb | 8 opacity.
@@ -59,37 +60,6 @@ inline PixelLayout tiled_layout(int tile, int n_tiles_x) {
 inline PixelLayout panel_layout(int tile, int n_tiles_y, int row_tiles) {
   const long long wp = static_cast<long long>(row_tiles) * tile;
   return {n_tiles_y * tile * wp, tile * wp, tile, wp, 4};
-}
-
-// The calling thread's tile and pixel in a grid of n_tiles_y * row_tiles
-// CTAs of tile * tile threads. Tiles past the image's last tile column
-// (tx >= n_tiles_x, the panel layout's padding sub-tiles) get the empty
-// segment [0, 0) and gradient base 0.
-struct TilePixel {
-  int tx, ty, px, py;
-  int start, end;
-  long long gbase;
-  long long at;  // offset of row 0 of this pixel in the layout
-};
-
-__device__ __forceinline__ TilePixel tile_pixel(const int* offsets,
-                                                const int* grad_offsets,
-                                                int tile, int n_tiles_x,
-                                                int row_tiles,
-                                                const PixelLayout& lay) {
-  TilePixel tp;
-  tp.ty = blockIdx.x / row_tiles;
-  tp.tx = blockIdx.x % row_tiles;
-  tp.px = threadIdx.x % tile;
-  tp.py = threadIdx.x / tile;
-  const bool real = tp.tx < n_tiles_x;
-  const int t = tp.ty * n_tiles_x + tp.tx;
-  tp.start = real ? offsets[t] : 0;
-  tp.end = real ? offsets[t + 1] : 0;
-  tp.gbase = (real && grad_offsets) ? grad_offsets[t] : 0;
-  tp.at = tp.ty * lay.tile_row + tp.tx * lay.tile_col + tp.py * lay.pix_row +
-          tp.px;
-  return tp;
 }
 
 struct PairAlpha {
@@ -128,79 +98,6 @@ __device__ __forceinline__ bool pair_composites(float T, float alpha,
                                                 float* t_after) {
   *t_after = T * (1.0f - alpha);
   return *t_after >= kTEps;
-}
-
-// Stage the window's 9 used feature rows in shared memory; pairs
-// outside the tile's segment [start, end) read as zero. All threads of
-// the block take part; the caller synchronises afterwards.
-__device__ __forceinline__ void stage_window(float* sm,
-                                             const float* __restrict__ feats,
-                                             long long stride, int win,
-                                             int start, int end, int chunk) {
-  for (int i = threadIdx.x; i < kUsedRows * chunk; i += blockDim.x) {
-    const int row = i / chunk;
-    const int idx = win + (i - row * chunk);
-    sm[i] = (idx >= start && idx < end) ? feats[row * stride + idx] : 0.0f;
-  }
-}
-
-// Forward walk of one tile's segment [start, end) for the calling
-// thread's pixel (px, py) of the tile with origin (ox, oy): colour
-// without background into rgb[3], the final transmittance into *T_out.
-// Every thread of the block calls it (block barriers inside); an empty
-// segment (start == end) leaves colour 0 and T = 1. A tile stops once
-// every pixel has T < 1e-4 (__syncthreads_count), the TPU's per-tile
-// while-loop exit. state: null, or the pixel's entry-state slot of the
-// tile's first window (rows 0..3 npx floats apart, windows 4 * npx);
-// the windows after an exit get zeros.
-__device__ __forceinline__ void fwd_walk(float* sm,
-                                         const float* __restrict__ feats,
-                                         long long stride, int start, int end,
-                                         int chunk, float ox, float oy,
-                                         float px, float py, float* rgb,
-                                         float* T_out,
-                                         float* __restrict__ state,
-                                         int npx) {
-  const int base = (start / chunk) * chunk;
-  float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int win = base; win < end; win += chunk) {
-    if (state) {
-      float* s = state + static_cast<long long>((win - base) / chunk) * 4 * npx;
-      s[0] = T;
-      s[npx] = acc_r;
-      s[2 * npx] = acc_g;
-      s[3 * npx] = acc_b;
-    }
-    // also the barrier that keeps the previous window's reads ahead of
-    // this window's stores
-    if (__syncthreads_count(T >= kTEps) == 0) {
-      for (int w = win + chunk; state && w < end; w += chunk) {
-        float* s = state + static_cast<long long>((w - base) / chunk) * 4 * npx;
-        s[0] = s[npx] = s[2 * npx] = s[3 * npx] = 0.0f;
-      }
-      break;
-    }
-    stage_window(sm, feats, stride, win, start, end, chunk);
-    __syncthreads();
-    const int lo = max(start - win, 0);
-    const int hi = min(end - win, chunk);
-    for (int k = lo; k < hi; ++k) {
-      PairAlpha a;
-      if (!pair_alpha(sm, chunk, k, ox, oy, px, py, &a)) continue;
-      float t_after;
-      // done for the rest of this window
-      if (!pair_composites(T, a.alpha, &t_after)) break;
-      const float w = a.alpha * T;
-      acc_r += w * sm[5 * chunk + k];
-      acc_g += w * sm[6 * chunk + k];
-      acc_b += w * sm[7 * chunk + k];
-      T = t_after;
-    }
-  }
-  rgb[0] = acc_r;
-  rgb[1] = acc_g;
-  rgb[2] = acc_b;
-  *T_out = T;
 }
 
 // The backward's per-pixel inputs, read at the layout's address: the
@@ -343,6 +240,116 @@ __device__ __forceinline__ Window window_at(int g, const int* offsets,
   w.lo = max(start - w.win, 0);
   w.hi = min(end - w.win, chunk);
   return w;
+}
+
+// The forward's pass over the window's pairs [lo, hi) at the calling
+// thread's pixel of the tile with origin (ox, oy) that needs no
+// transmittance: bit k % 32 of mask[(k / 32) * npx] is set where pair k
+// is not skipped (pair_alpha). A window runs it before it waits for its
+// entry state. Each thread reads only its own mask words.
+__device__ __forceinline__ void fwd_mask(const float* sm, int chunk, int lo,
+                                         int hi, float ox, float oy,
+                                         float px, float py, unsigned* mask,
+                                         int npx) {
+  const int words = (chunk + kWarp - 1) / kWarp;
+  for (int w = 0; w < words; ++w) {
+    const int k0 = w * kWarp;
+    const int a = max(lo - k0, 0);
+    const int b = min(hi - k0, kWarp);
+    unsigned bits = 0;
+#pragma unroll 4
+    for (int j = a; j < b; ++j) {
+      PairAlpha pa;
+      if (pair_alpha(sm, chunk, k0 + j, ox, oy, px, py, &pa)) bits |= 1u << j;
+    }
+    mask[w * npx] = bits;
+  }
+}
+
+// The forward's chain over the window: from the pixel's entry T and
+// colour sums acc[3] (updated in place), composite the pairs of fwd_mask's
+// set bits in pair order, with the arithmetic of a walk over every pair
+// that passes over a skipped one: the same alpha (recomputed), the same
+// products and sums in the same order. The first pair that fails the
+// termination test ends the pixel's walk for the rest of the window.
+// The alphas, which do not depend on T, are recomputed four set bits at
+// a time ahead of their serial updates.
+__device__ __forceinline__ void fwd_chain(const float* sm, int chunk,
+                                          const unsigned* mask, int npx,
+                                          float ox, float oy, float px,
+                                          float py, float* T, float* acc) {
+  const int words = (chunk + kWarp - 1) / kWarp;
+  int w = 0;
+  unsigned bits = mask[0];
+  for (;;) {
+    int k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      while (bits == 0u && ++w < words) bits = mask[w * npx];
+      k[j] = bits ? w * kWarp + __ffs(bits) - 1 : -1;
+      bits &= bits - 1u;
+    }
+    float alpha[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      PairAlpha a;
+      pair_alpha(sm, chunk, max(k[j], 0), ox, oy, px, py, &a);
+      alpha[j] = a.alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k[j] < 0) return;  // no set bits left
+      float t_after;
+      if (!pair_composites(*T, alpha[j], &t_after)) return;
+      const float wt = alpha[j] * *T;
+      acc[0] += wt * sm[5 * chunk + k[j]];
+      acc[1] += wt * sm[6 * chunk + k[j]];
+      acc[2] += wt * sm[7 * chunk + k[j]];
+      *T = t_after;
+    }
+  }
+}
+
+// The forward's hand-off between the windows of a tile: flags[g] says
+// what window g - 1 left for window g: 0 nothing yet, kEntryReady its
+// exit (window g's entry) in state row g, kTileExited the tile stopped
+// at or before window g - 1.
+constexpr int kEntryReady = 1;
+constexpr int kTileExited = 2;
+
+// Set *flag to value once every thread of the block has stored what it
+// publishes: the barrier orders their stores before thread 0's fence and
+// store (the pattern of a grid barrier). Every thread calls it.
+__device__ __forceinline__ void publish(int* flag, int value) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicExch(flag, value);
+  }
+}
+
+// Wait until *flag is set and return its value to every thread: thread 0
+// polls and fences, the barrier passes its value (through *slot) and
+// what the publisher stored on to the block. Read what it published
+// with loads that bypass L1 (__ldcg). Every thread calls it.
+__device__ __forceinline__ int wait_flag(const int* flag, int* slot) {
+  if (threadIdx.x == 0) {
+    int v;
+    while ((v = *reinterpret_cast<const volatile int*>(flag)) == 0) {
+    }
+    __threadfence();
+    *slot = v;
+  }
+  __syncthreads();
+  return *slot;
+}
+
+// The block's next work item of a persistent grid: thread 0 takes a
+// ticket, the barrier passes it (through *slot) to every thread.
+__device__ __forceinline__ int take_ticket(int* ticket, int* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd(ticket, 1);
+  __syncthreads();
+  return *slot;
 }
 
 // The backward, one window at a time. The formulas come from Form

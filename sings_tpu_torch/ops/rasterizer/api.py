@@ -6,10 +6,11 @@ background blend. The composite is an autograd.Function whose backward
 is the matching backward kernel: it writes per-pair gradients into the
 aligned buffer, and the 9 used rows are un-sorted back to gaussians
 with the main_slot / tail_slot / tail_of_gauss gathers of
-bin_gaussians. When a backward can follow (grad mode on and an input
-that requires grad), the forward also writes the window-entry state
-(grad_cap x 32 bytes) that the backward starts each window from; a
-render under no_grad allocates none.
+bin_gaussians. The forward kernel always walks through the window-entry
+state (grad_cap x 32 bytes): its windows hand each other their entry in
+it. When a backward can follow (grad mode on and an input that requires
+grad), the forward keeps it for the backward, which starts each window
+from it; a render under no_grad drops it with the forward.
 
 Two layouts, as in the JAX package (RasterConfig.layout):
   * "tiled": composite_fwd writes (T, 8, npx) tile rows, relaid out to
@@ -144,13 +145,14 @@ class _Composite(torch.autograd.Function):
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
                   n_tiles_y=nty,
                   pw=cfg.panel_width if cfg.layout == "panel" else None)
-        state = None
-        if want_state:
-            out, state = composite_fwd(
-                feats, binning.tile_offsets, grad_offsets=binning.grad_offsets,
-                grad_cap=binning.pair_slot_capacity, **kw)
-        else:
-            out = composite_fwd(feats, binning.tile_offsets, **kw)
+        # the kernel's windows hand each other their entry state through
+        # the gradient buffer's window layout on every call; the state is
+        # kept only for a backward
+        res = composite_fwd(
+            feats, binning.tile_offsets, grad_offsets=binning.grad_offsets,
+            grad_cap=binning.pair_slot_capacity, return_state=want_state,
+            **kw)
+        out, state = res if want_state else (res, None)
         if cfg.layout == "panel":
             # (4, Hp, Wp) image planes: a crop, no relayout
             color = out[:3, : cfg.height, : cfg.width]

@@ -33,8 +33,12 @@ numbering); zero for the windows a tile's walk never reached, which the
 backward therefore skips. The rows from grad_offsets[T] // chunk on
 belong to no tile and are never read: the kernel leaves them unwritten
 (its buffer is not zero-filled), the plain version zero. The state
-makes the backward's windows independent: composite_bwd walks them in
-parallel from it instead of re-walking each tile's segment.
+makes the windows independent: the forward kernel walks a tile's
+windows on separate CTAs that hand each other their entry through it
+(so it needs grad_offsets and grad_cap on every call, and writes into
+scratch of the same layout when the caller does not keep the state:
+return_state=False), and composite_bwd walks them in parallel from it
+instead of re-walking each tile's segment.
 Backward output: (9, grad_cap) per-pair gradients in JAX's row order
 (d mean_x, d mean_y, d conic a, b, c, d r, g, b, d opacity), the first 9
 of JAX's 16 rows, at grad_offsets[t] + (i - base_t) for sorted pair i of
@@ -270,13 +274,14 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
                         n_tiles_y: int, pw: int | None = None,
                         grad_offsets: torch.Tensor | None = None,
                         grad_cap: int | None = None,
+                        return_state: bool = True,
                         return_walked: bool = False):
     """Plain PyTorch composite, vectorised over tiles: the colour sums
     of _walk_windows' compositing pairs and the last transmittance, in
     tile rows or, with pw, relaid out to the panel planes.
 
     grad_offsets, grad_cap: also return the window-entry state (see the
-    module docstring): (out, state).
+    module docstring): (out, state), unless return_state is False.
     return_walked: also return the number of pairs walked before each
     tile's exit, summed (the data-dependent work of this input), last.
     """
@@ -286,7 +291,7 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
     t_final = torch.ones((n_tiles, 1, npx), device=dev)
     acc = torch.zeros((n_tiles, 3, npx), device=dev)
     state = None
-    if grad_offsets is not None:
+    if grad_offsets is not None and return_state:
         state = feats.new_zeros(state_shape(grad_cap=grad_cap, chunk=chunk,
                                             tile=tile))
         win0 = torch.div(grad_offsets[:-1].to(torch.int64), chunk,
@@ -315,8 +320,9 @@ def composite_fwd_plain(feats: torch.Tensor, offsets: torch.Tensor, *,
     return res[0] if len(res) == 1 else res
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]
 
@@ -360,6 +366,13 @@ def _check_grad_offsets(grad_offsets, n_tiles, grad_cap, chunk, device):
                          f"of chunk {chunk}")
 
 
+def _check_staging(feats, chunk):
+    if feats.data_ptr() % 16 or feats.stride(0) % 4 or chunk % 4:
+        raise ValueError("the kernels stage feats in 16-byte copies: "
+                         "feats 16-byte aligned, its row stride and chunk "
+                         "multiples of 4")
+
+
 def _row_tiles(shape, tile: int, pw: int | None) -> int:
     """The launchers' layout argument: 0 for tile rows, else the tiles
     of a padded tile row of the panel planes."""
@@ -370,37 +383,44 @@ def composite_fwd_cuda(feats: torch.Tensor, offsets: torch.Tensor, *,
                        tile: int, chunk: int, n_tiles_x: int,
                        n_tiles_y: int, pw: int | None = None,
                        grad_offsets: torch.Tensor | None = None,
-                       grad_cap: int | None = None):
+                       grad_cap: int | None = None,
+                       return_state: bool = True):
     """Launch csrc/composite_fwd.cu on the current stream: tile rows, or
-    with pw the panel planes (counted as composite_fwd_panel). With
-    grad_offsets and grad_cap, also the window-entry state: returns
-    (out, state)."""
+    with pw the panel planes (counted as composite_fwd_panel). Needs
+    grad_offsets and grad_cap: the kernel's windows hand each other their
+    entry in the window-entry state's layout. Returns (out, state), or
+    with return_state=False out alone (the state then lives in scratch
+    that is dropped)."""
     name = "composite_fwd" if pw is None else "composite_fwd_panel"
+    if grad_offsets is None or grad_cap is None:
+        raise ValueError(f"{name}: the CUDA kernel needs grad_offsets and "
+                         "grad_cap (its windows hand on their entry state)")
     if not (feats.is_cuda and offsets.is_cuda
             and feats.device == offsets.device):
         raise ValueError(f"{name} needs both tensors on one CUDA device")
-    _check(feats, offsets, tile, chunk, n_tiles_x * n_tiles_y)
-    state = None
-    if grad_offsets is not None:
-        _check_grad_offsets(grad_offsets, n_tiles_x * n_tiles_y, grad_cap,
-                            chunk, feats.device)
-        state = torch.empty(state_shape(grad_cap=grad_cap, chunk=chunk,
-                                        tile=tile),
-                            dtype=torch.float32, device=feats.device)
+    n_tiles = n_tiles_x * n_tiles_y
+    _check(feats, offsets, tile, chunk, n_tiles)
+    _check_grad_offsets(grad_offsets, n_tiles, grad_cap, chunk, feats.device)
+    _check_staging(feats, chunk)
     shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
                       pw=pw)
     fn = _lib()
+    state = torch.empty(state_shape(grad_cap=grad_cap, chunk=chunk,
+                                    tile=tile),
+                        dtype=torch.float32, device=feats.device)
+    # the ticket, then one hand-off flag per window
+    sync = torch.zeros(grad_cap // chunk + 1, dtype=torch.int32,
+                       device=feats.device)
     out = torch.empty(shape, dtype=torch.float32, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = fn(feats.data_ptr(), feats.stride(0), offsets.data_ptr(),
-             None if state is None else grad_offsets.data_ptr(),
-             None if state is None else state.data_ptr(),
-             out.data_ptr(), n_tiles_y, n_tiles_x, tile, chunk,
-             _row_tiles(shape, tile, pw), stream)
+    err = fn(feats.data_ptr(), feats.stride(0), feats.shape[1],
+             offsets.data_ptr(), grad_offsets.data_ptr(), state.data_ptr(),
+             sync.data_ptr(), out.data_ptr(), grad_cap // chunk, n_tiles_y,
+             n_tiles_x, tile, chunk, _row_tiles(shape, tile, pw), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
-    if state is None:
+    if not return_state:
         return out
     STATE_WRITES[name] += 1
     return out, state
@@ -410,11 +430,11 @@ def composite_fwd(feats: torch.Tensor, offsets: torch.Tensor, *, tile: int,
                   chunk: int, n_tiles_x: int, n_tiles_y: int,
                   pw: int | None = None,
                   grad_offsets: torch.Tensor | None = None,
-                  grad_cap: int | None = None):
+                  grad_cap: int | None = None, return_state: bool = True):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     kw = dict(tile=tile, chunk=chunk, n_tiles_x=n_tiles_x,
               n_tiles_y=n_tiles_y, pw=pw, grad_offsets=grad_offsets,
-              grad_cap=grad_cap)
+              grad_cap=grad_cap, return_state=return_state)
     if feats.is_cuda:
         return composite_fwd_cuda(feats, offsets, **kw)
     if feats.device.type == "cpu":
@@ -509,10 +529,7 @@ def _check_bwd(name, feats, offsets, grad_offsets, fwd_out, gout, state, *,
         raise ValueError(f"{name} needs every tensor on one CUDA device")
     _check(feats, offsets, tile, chunk, n_tiles)
     _check_grad_offsets(grad_offsets, n_tiles, grad_cap, chunk, feats.device)
-    if feats.data_ptr() % 16 or feats.stride(0) % 4 or chunk % 4:
-        raise ValueError("the backward stages feats in 16-byte copies: "
-                         "feats 16-byte aligned, its row stride and chunk "
-                         "multiples of 4")
+    _check_staging(feats, chunk)
     shape = out_shape(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
                       pw=pw)
     st = state_shape(grad_cap=grad_cap, chunk=chunk, tile=tile)
