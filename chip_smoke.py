@@ -15,7 +15,10 @@ training step, Trainer(cfg, mode="train").train_scan, as bench.py's
 recipe benchmark drives it (8 steps a chunk); and the training entry
 point, python -m sings_tpu_torch.cli.train (cli.train.main with the kit
 held in memory) with tpu.raster.layout=panel, resumed from a
-checkpoint; and the kernel experiments, python -m
+checkpoint; the synthetic-template calibration that a default training
+run starts with (Trainer(mode="train") with tpu.auto_fit_synthetic
+unset) and python -m sings_tpu_torch.cli.refine; and the kernel
+experiments, python -m
 sings_tpu_torch.scripts.{exp_cumsum_kernel,exp_bwd_moments,
 exp_bwd_variants} at their own sizes. Phases:
 
@@ -106,12 +109,27 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame and on phase 12's trained-avatar frame (in those
                 phases, with the loss's cotangents): each against its
                 plain version, its gap to composite_bwd reported
+ 15 calibrate   the default training run's synthetic-template fit:
+                phase 7's 9-frame kit (masks from its avatar's render)
+                with COCO-133 keypoints at the posed joints and face
+                anchors and its poses perturbed; Trainer(mode="train")
+                with HUMAN_COMPLEX_DOTLIST + HUMAN_COMPLEX_TRAIN_DOTLIST
+                and tpu.auto_fit_synthetic unset runs fit_skeleton (500
+                steps) and refine_smpl (300 steps of 8 frames at 128x128
+                through composite_fwd / composite_bwd, launches counted
+                from 0: 2,400 each, no panel kernel), the px error and
+                the loss must fall and synthetic_fit.npz appear; a second
+                Trainer loads it with no launch; both kernels against
+                their plain versions at refine's frame 0 (the MSE's
+                cotangents), timed, with bounds and the tile load, and
+                the stages' wall times; cli.refine.main --steps 20 on the
+                same kit writes poses_optimized.npz
 With --profile, stage tables and torch.profiler kernel tables of an
-animation frame (after phase 6) and of a training step (after phase
-10); each profiled stage that launches a composite kernel must show
-that kernel's device time. Every failure raises; the script exits 0
-only when every phase passed, and then prints the kernels line and,
-last, the device line.
+animation frame (after phase 6), of a training step (after phase 10) and
+of the calibration's two stages (in phase 15); each profiled stage that
+launches a composite kernel must show that kernel's device time. Every
+failure raises; the script exits 0 only when every phase passed, and
+then prints the kernels line and, last, the device line.
 """
 from __future__ import annotations
 
@@ -813,6 +831,8 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
     kernels.extend(run_scan(dev, smi))
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
+    # ---- 15 the synthetic-template calibration
+    run_calibrate(work, dev, smi, kernels, profile_dir)
     for row in kernels:
         if row["name"] in KERNEL_ERRS:
             row["max_abs_err"] = KERNEL_ERRS[row["name"]]
@@ -1245,6 +1265,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     trainer = Trainer(cfg, mode="train", device=dev, kit=make_train_kit(),
                       image_writer=lambda path, img: None)
     seed_train_targets(trainer)
+    CALIBRATE_TARGETS.update(masks=trainer.masks.cpu().numpy(),
+                             tpl=trainer.tpl)
     acfg = trainer.avatar_cfg
     n_live = int(trainer.buffers.alive.sum())
     batches = train_batches(trainer)
@@ -2188,6 +2210,427 @@ def run_experiments(dev, smi: str) -> list:
             raise AssertionError("v2 is not bitwise equal to v4")
         del sc, args, ref, outs
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the synthetic-template calibration (phase 15)
+
+# phase 7's masks (the seeded avatar's own render at the kit's poses) and
+# its template, filled by run_train
+CALIBRATE_TARGETS = {}
+# the calibration kit's poses are moved off those the masks and keypoints
+# were made at: a seeded offset of every frame's translation (up to these
+# metres) and seeded pose noise (radians)
+CALIB_TRANSL_OFFSET = (0.05, 0.05, 0.2)
+CALIB_POSE_NOISE = 0.03
+CLI_REFINE_STEPS = 20
+FIT_KEYS = ("betas", "global_orient", "body_pose", "transl")
+
+
+def calibration_kit(dev):
+    """Phase 7's 9-frame 512x512 kit with its avatar-rendered masks and
+    COCO-133 keypoints (scores 1) at the projections of the posed joints
+    (through _COCO133_SMPL_PAIRS) and of the face anchors
+    (FACE_ANCHOR_INIT), its SMPL poses then perturbed. Returns the kit
+    and its intrinsics."""
+    from sings_tpu_torch.kinematics.template import DeviceTemplate
+    from sings_tpu_torch.preprocess.refine import (
+        FACE_ANCHOR_INIT, _COCO133_SMPL_PAIRS, posed_smpl_joints,
+    )
+
+    kit = make_train_kit()
+    tpl = CALIBRATE_TARGETS["tpl"]
+    size = kit.masks.shape[1]
+    K = np.array([[1000.0, 0, size / 2], [0, 1000.0, size / 2], [0, 0, 1]],
+                 np.float32)
+    true = dict(kit.smpl, betas=np.zeros(tpl.num_betas, np.float32))
+    with torch.no_grad():
+        joints, head_rot = posed_smpl_joints(
+            DeviceTemplate.from_host(tpl, dev),
+            {k: torch.as_tensor(v, device=dev) for k, v in true.items()},
+            return_head_rot=True)
+        anchors = joints[:, 15, None] + torch.einsum(
+            "fxy,ay->fax", head_rot, torch.as_tensor(FACE_ANCHOR_INIT,
+                                                     device=dev))
+
+    def px(points):
+        uvw = points.cpu().numpy() @ K.T
+        return uvw[..., :2] / uvw[..., 2:]
+
+    f = kit.masks.shape[0]
+    kp = np.zeros((f, 133, 2), np.float32)
+    scores = np.zeros((f, 133), np.float32)
+    for sj, cj in _COCO133_SMPL_PAIRS:
+        kp[:, cj] = px(joints[:, sj])
+        scores[:, cj] = 1.0
+    kp[:, :5] = px(anchors)
+    scores[:, :5] = 1.0
+    rng = np.random.RandomState(SEED + 7)
+    smpl = dict(kit.smpl)
+    smpl["transl"] = (smpl["transl"] + rng.uniform(-1, 1, 3)
+                      * CALIB_TRANSL_OFFSET).astype(np.float32)
+    smpl["body_pose"] = (smpl["body_pose"] + rng.randn(f, 69)
+                         * CALIB_POSE_NOISE).astype(np.float32)
+    return kit._replace(masks=CALIBRATE_TARGETS["masks"], keypoints=kp,
+                        keypoint_scores=scores, smpl=smpl), K
+
+
+class stage_calls:
+    """Each calibration stage's call (fit_skeleton, refine_smpl), looked
+    up in preprocess.refine when the trainer calls it: its arguments,
+    its result and its wall time, the card synchronised at both ends."""
+
+    def __enter__(self):
+        from sings_tpu_torch.preprocess import refine as R
+
+        self.saved = {name: getattr(R, name) for name in ("fit_skeleton",
+                                                          "refine_smpl")}
+        self.calls = {}
+
+        def recorded(name, fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.calls[name] = dict(args=args, kw=kw, out=out,
+                                        seconds=time.perf_counter() - t0)
+                return out
+            return run
+
+        for name, fn in self.saved.items():
+            setattr(R, name, recorded(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from sings_tpu_torch.preprocess import refine as R
+
+        for name, fn in self.saved.items():
+            setattr(R, name, fn)
+
+
+def refine_camera(kit, K, dev):
+    """The trainer's refine camera and masks: render_downscale
+    d = size // 128, strided masks, K / d, the identity extrinsic."""
+    from sings_tpu_torch.ops.graphics import make_camera
+
+    size = kit.masks.shape[1]
+    d = max(1, size // 128)
+    Kd = K.copy()
+    Kd[:2] /= d
+    cam = make_camera(np.eye(4, dtype=np.float32), size // d, size // d,
+                      K=Kd, device=dev)
+    return cam, torch.as_tensor(np.ascontiguousarray(kit.masks[:, ::d, ::d]),
+                                device=dev)
+
+
+@torch.no_grad()
+def silhouette_mse(trainer, kit, K, params: dict) -> float:
+    """The silhouette term alone: the MSE of refine's silhouette against
+    the mask, averaged over every frame of the kit."""
+    from sings_tpu_torch.kinematics.template import smpl_forward
+    from sings_tpu_torch.preprocess import refine as R
+
+    dev = trainer.device
+    dt = trainer.template
+    cam, masks = refine_camera(kit, K, dev)
+    p = {k: torch.as_tensor(params[k], device=dev) for k in FIT_KEYS}
+    cfg = R.RefineConfig(splat_scale=R.auto_splat_scale(dt))
+    out = smpl_forward(dt, p["betas"].reshape(1, -1), p["body_pose"],
+                       p["global_orient"],
+                       disable_posedirs=dt.posedirs is None)
+    verts = out.verts + p["transl"][:, None]
+    return float(torch.stack([torch.mean((R._silhouette(
+        verts[i], cam, cfg, R.default_refine_raster_kw(dev)) - masks[i]) ** 2)
+        for i in range(verts.shape[0])]).mean())
+
+
+def silhouette_frame(trainer, kit, K, start: dict):
+    """Refine's frame-0 inputs on its first step (`start`, stage A's
+    poses and betas): the composite kernels' inputs of the silhouette,
+    its window-entry state and the cotangents of the frame's MSE
+    against the (strided) mask, the forward checked on the way
+    (check_fwd). Returns composite_bwd's arguments and keywords, the
+    binning and the composite keywords."""
+    from sings_tpu_torch.kinematics.template import smpl_forward
+    from sings_tpu_torch.ops.rasterizer.api import (
+        RasterConfig, image_to_tiles, tiles_to_image,
+    )
+    from sings_tpu_torch.preprocess import refine as R
+
+    dev = trainer.device
+    start = {k: torch.as_tensor(start[k], device=dev) for k in FIT_KEYS}
+    dt = trainer.template
+    cam, masks = refine_camera(kit, K, dev)
+    mask0 = masks[0]
+    with torch.no_grad():
+        out = smpl_forward(dt, start["betas"].reshape(1, -1),
+                           start["body_pose"][:1], start["global_orient"][:1],
+                           disable_posedirs=dt.posedirs is None)
+        verts = out.verts[0] + start["transl"][0]
+    n = verts.shape[0]
+    gauss = [verts, torch.full((n, 3), R.auto_splat_scale(dt), device=dev),
+             torch.tensor([[1.0, 0, 0, 0]], device=dev).repeat(n, 1),
+             torch.full((n,), R.RefineConfig().splat_opacity, device=dev),
+             torch.ones((n, 3), device=dev)]
+    rkw = dict(R.default_refine_raster_kw(dev), max_pairs=None,
+               main_width=6, tail_capacity=None, pair_cap=None)
+    feats, binning, ckw = composite_inputs(gauss, cam, rkw)
+    (fwd_out, state), _ = check_fwd("calibration silhouette frame 0", feats,
+                                    binning, ckw)
+    cfg = RasterConfig(height=cam.height, width=cam.width, **rkw)
+    color, t_final = (x.detach().requires_grad_(True)
+                      for x in tiles_to_image(fwd_out, cfg))
+    sil = torch.clamp(color[0] + t_final * 0.0, 0.0, 1.0)  # bg zeros
+    g_color, g_t = torch.autograd.grad(torch.mean((sil - mask0) ** 2),
+                                       [color, t_final])
+    gout = image_to_tiles(g_color, g_t, cfg).contiguous()
+    bargs = (feats, binning.tile_offsets, binning.grad_offsets, fwd_out,
+             gout, state)
+    return bargs, dict(ckw, grad_cap=binning.pair_slot_capacity), binning, \
+        ckw
+
+
+def profile_calibrate(calls: dict, out_dir: str) -> None:
+    """--profile: each calibration stage called again as the trainer
+    called it (stage_calls), cut to a few steps, under torch.profiler:
+    device time per step against the stage's unprofiled wall per step,
+    the composite kernels' share, and the largest kernels of the
+    refine."""
+    from sings_tpu_torch.preprocess import refine as R
+
+    os.makedirs(out_dir, exist_ok=True)
+    configs = (R.SkeletonFitConfig, R.RefineConfig)
+
+    def cut(x, n):
+        return x._replace(steps=n) if isinstance(x, configs) else x
+
+    lines = [f"{'stage':14s} {'wall ms':>10s} {'kernels ms':>10s} "
+             f"{'composite':>10s} {'busy':>6s} {'pre':>4s}  per step (wall: "
+             "the calibration's unprofiled host clock; kernels: device "
+             "time, profiler; composite: the composite kernels' share)"]
+    for name, n in (("fit_skeleton", 10), ("refine_smpl", 2)):
+        call = calls[name]
+        args = [cut(a, n) for a in call["args"]]
+        kw = {k: cut(v, n) for k, v in call["kw"].items()}
+        fn = getattr(R, name)
+        fn(*args, **kw)  # warm
+        busy, comp, seen, prof = profiled(lambda: fn(*args, **kw))
+        if name == "refine_smpl":
+            require_seen(name, comp, list(COMPOSITE_KERNELS), prof, out_dir)
+            top = sorted([e for e in prof.key_averages() if e.device_type
+                          == torch.autograd.DeviceType.CUDA],
+                         key=lambda e: e.self_device_time_total,
+                         reverse=True)[:12]
+        wall = 1e3 * call["seconds"] / len(call["out"]["losses"])
+        lines.append(f"{name:14s} {wall:10.3f} {busy / n:10.4f} "
+                     f"{sum(comp.values()) / n:10.4f} "
+                     f"{100 * busy / n / wall:5.1f}% {seen:4d}")
+    lines.append("largest kernels of 2 refine steps:")
+    for e in top:
+        lines.append(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+                     f"{e.count:6d}x  {e.key[:90]}")
+    for line in lines:
+        log(f"[profile] {line}")
+    with open(os.path.join(out_dir, "profile_calibrate.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def run_calibrate(work: str, dev, smi: str, rows: list,
+                  profile_dir: str | None = None, extra=()) -> None:
+    """Phase 15: Trainer(mode="train") with the synthetic template and
+    tpu.auto_fit_synthetic unset calibrates it (fit_skeleton, then
+    refine_smpl through the composite kernels) and caches the result;
+    a second Trainer on the run directory loads the cache; the kernels
+    at refine's frame 0 against their plain versions, timed; then
+    cli.refine.main on the same kit. Adds a "calibrate" entry to the
+    composite_fwd and composite_bwd rows."""
+    from sings_tpu_torch.cli import refine as cli_refine
+    from sings_tpu_torch.config.core import load_config
+    from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    kit, K = calibration_kit(dev)
+    cfg = load_config(DEFAULTS, None, HUMAN_COMPLEX_DOTLIST
+                      + HUMAN_COMPLEX_TRAIN_DOTLIST + [
+                          f"output_path={work}", "exp_name=smoke_calibrate",
+                          "dataset.name=kit", f"seed={SEED}",
+                          f"tpu.smpl_model_dir={work}/no_licensed_models",
+                          "train.init_steps=10"] + list(extra))
+    if not cfg.tpu.get("auto_fit_synthetic", True):
+        raise AssertionError("tpu.auto_fit_synthetic is set off")
+    a_steps = int(cfg.tpu.get("skeleton_fit_steps", 500))
+    b_steps = int(cfg.tpu.get("synthetic_fit_steps", 300))
+    frames = min(8, kit.masks.shape[0])  # RefineConfig.batch_frames
+    log(f"[calibrate] kit: {kit.masks.shape[0]} frames "
+        f"{kit.masks.shape[1]}x{kit.masks.shape[2]}, masks from phase 7's "
+        f"render (cover {float(kit.masks.mean()):.3f}), COCO-133 keypoints "
+        f"at the posed joints and face anchors, poses perturbed "
+        f"({time.time() - t0:.1f}s)")
+
+    # ---- the main path: the default training run's constructor
+    from sings_tpu_torch.ops.rasterizer import kernels as KN
+
+    with stage_calls() as stages:
+        KN.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer = Trainer(cfg, mode="train", device=dev, kit=kit,
+                          image_writer=lambda path, img: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches, writes = dict(KN.LAUNCHES), dict(KN.STATE_WRITES)
+    calls = stages.calls
+    res_a = calls["fit_skeleton"]["out"]
+    res_b = calls["refine_smpl"]["out"]
+    px, losses = res_a["px_err"], res_b["losses"]
+    log(f"[calibrate] Trainer(mode='train') {wall:.3f}s: fit_skeleton "
+        f"{a_steps} steps {calls['fit_skeleton']['seconds']:.3f}s, "
+        f"refine_smpl {b_steps} steps x {frames} frames "
+        f"{calls['refine_smpl']['seconds']:.3f}s (host clock, card "
+        f"synchronised) | {smi}")
+    log(f"[calibrate] keypoint px err {px[0]:.3f} -> {px[-1]:.3f}; loss "
+        f"{res_b['losses'][0]:.5f} -> {res_b['losses'][-1]:.5f}; betas "
+        f"{np.round(res_b['betas'], 3).tolist()}; launches {launches}, "
+        f"state writes {writes}")
+    if not (np.all(np.isfinite(px)) and np.all(np.isfinite(losses))):
+        raise AssertionError("a calibration loss is not finite")
+    if not px[-1] < 0.5 * px[0]:
+        raise AssertionError("the keypoint px error did not fall")
+    sil = [silhouette_mse(trainer, kit, K, r) for r in (res_a, res_b)]
+    log(f"[calibrate] silhouette MSE over the {kit.masks.shape[0]} frames "
+        f"{sil[0]:.5f} -> {sil[1]:.5f}; refine's loss by step "
+        f"{np.round(losses[::max(1, b_steps // 10)], 5).tolist()}")
+    if not sil[1] < sil[0]:
+        raise AssertionError("the silhouette loss did not fall")
+    if len(px) != a_steps or len(losses) != b_steps:
+        raise AssertionError("a stage ran another number of steps")
+    cache = os.path.join(trainer.logdir, "synthetic_fit.npz")
+    if not os.path.exists(cache):
+        raise AssertionError("synthetic_fit.npz was not written")
+    want = b_steps * frames
+    if (launches["composite_fwd"], launches["composite_bwd"],
+            writes["composite_fwd"]) != (want, want, want):
+        raise AssertionError(f"the calibration launched {launches} "
+                             f"(state writes {writes}), not {want} of each "
+                             "tiled kernel")
+    if launches["composite_fwd_panel"] or launches["composite_bwd_panel"]:
+        raise AssertionError("the calibration launched a panel kernel")
+
+    # ---- the kernels at refine's frame 0
+    bargs, bkw, binning, ckw = silhouette_frame(trainer, kit, K, res_a)
+    got = KN.composite_bwd_cuda(*bargs, **bkw)
+    want_g, walked_b, composited = KN.composite_bwd_plain(
+        *bargs, return_counts=True, **bkw)
+    torch.cuda.synchronize()
+    if float(bargs[4][:, 0].abs().max()) == 0.0:
+        raise AssertionError("the silhouette's cotangents are zero")
+    bwd_err = check_bwd("calibration silhouette frame 0 (the MSE's "
+                        "cotangents)", got, want_g, binning)
+    feats, offs = bargs[0], bargs[1]
+    skw = dict(grad_offsets=bargs[2], grad_cap=bkw["grad_cap"])
+    _, walked = KN.composite_fwd_plain(feats, offs, return_walked=True,
+                                       **ckw)
+    fwd_ms = cuda_ms(lambda: KN.composite_fwd_cuda(feats, offs, **skw,
+                                                   **ckw))
+    fwd_plain = cuda_ms(lambda: KN.composite_fwd_plain(feats, offs, **ckw),
+                        n=5, warm=1)
+    bwd_ms = cuda_ms(lambda: KN.composite_bwd_cuda(*bargs, **bkw))
+    bwd_plain = cuda_ms(lambda: KN.composite_bwd_plain(*bargs, **bkw), n=5,
+                        warm=1)
+    n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
+    npx = ckw["tile"] ** 2
+    f_ops = OPS_PER_PAIR_PIXEL * walked * npx / H100_FP32_FLOPS * 1e3
+    f_bytes = 4 * (9 * walked + 2 * (n_tiles + 1) + n_tiles * 8 * npx) \
+        / H100_BYTES_PER_S * 1e3
+    b_ops = (OPS_PER_PAIR_PIXEL_BWD * walked_b * npx
+             + OPS_PER_COMPOSITE_BWD * composited) / H100_FP32_FLOPS * 1e3
+    b_bytes = 4 * (9 * walked_b + 2 * (n_tiles + 1) + 2 * n_tiles * 4 * npx
+                   + 9 * bkw["grad_cap"]) / H100_BYTES_PER_S * 1e3
+    log(f"[calibrate] silhouette frame 0: pairs {int(binning.num_pairs)}, "
+        f"overflow {int(binning.overflow)}, walked {walked} (backward "
+        f"{walked_b}), compositing pair-pixels {composited}, "
+        f"{tile_load(binning)}")
+    log(f"[calibrate] composite_fwd {fwd_ms:.4f} ms (keeping the state), "
+        f"plain {fwd_plain:.3f} ms, bound {max(f_ops, f_bytes):.4f} ms (ops "
+        f"{f_ops:.4f}, bytes {f_bytes:.4f}); composite_bwd {bwd_ms:.4f} ms, "
+        f"plain {bwd_plain:.3f} ms, bound {max(b_ops, b_bytes):.4f} ms (ops "
+        f"{b_ops:.4f}, bytes {b_bytes:.4f}); {want} launches of each | "
+        f"{smi}")
+    for row in rows:
+        if row["name"] == "composite_fwd":
+            row["calibrate"] = {
+                "launches": launches["composite_fwd"], "ms": fwd_ms,
+                "plain_ms": fwd_plain, "bound_ms": max(f_ops, f_bytes),
+                "bound_by": "operations" if f_ops >= f_bytes else "bytes",
+                "max_abs_err": KERNEL_ERRS["composite_fwd"]}
+        elif row["name"] == "composite_bwd":
+            row["calibrate"] = {
+                "launches": launches["composite_bwd"], "ms": bwd_ms,
+                "plain_ms": bwd_plain, "bound_ms": max(b_ops, b_bytes),
+                "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+                "max_abs_err": bwd_err}
+            row["max_abs_err"] = max(row["max_abs_err"], bwd_err)
+    if profile_dir:
+        profile_calibrate(calls, profile_dir)
+    fitted = {k: np.asarray(trainer.kit.smpl[k]) for k in FIT_KEYS}
+    del trainer, bargs, got, want_g, feats, binning
+    torch.cuda.empty_cache()
+
+    # ---- a second run on the same directory loads the cache
+    with stage_calls() as stages:
+        KN.reset_launches()
+        t1 = time.perf_counter()
+        again = Trainer(cfg, mode="train", device=dev, kit=kit,
+                        image_writer=lambda path, img: None)
+    log(f"[calibrate] second Trainer on the run directory "
+        f"{time.perf_counter() - t1:.3f}s, launches {dict(KN.LAUNCHES)}, "
+        f"stages run {sorted(stages.calls)}")
+    if any(KN.LAUNCHES.values()) or stages.calls:
+        raise AssertionError("the second Trainer refitted the calibration")
+    if not all(np.array_equal(again.kit.smpl[k], fitted[k])
+               for k in FIT_KEYS):
+        raise AssertionError("the cached calibration was not loaded")
+    del again
+    torch.cuda.empty_cache()
+
+    # ---- the refine entry point on the same kit
+    kit_dir = os.path.join(work, "calibration_kit")
+    os.makedirs(os.path.join(kit_dir, "score_demo_video"))
+    np.savez(os.path.join(kit_dir, "score_demo_video", "cameras.npz"),
+             intrinsic=K, extrinsic=np.eye(4, dtype=np.float32),
+             height=kit.masks.shape[1], width=kit.masks.shape[2])
+    kp_dir = os.path.join(kit_dir, "keypoints_coco133", "sapiens")
+    os.makedirs(kp_dir)
+    for i in range(kit.masks.shape[0]):
+        with open(os.path.join(kp_dir, f"{i:06d}.json"), "w") as fh:
+            json.dump({"instance_info": [{
+                "keypoints": kit.keypoints[i].tolist(),
+                "keypoint_scores": kit.keypoint_scores[i].tolist()}]}, fh)
+    argv = ["--kit", kit_dir, "--steps", str(CLI_REFINE_STEPS),
+            "--smpl_model_dir", f"{work}/no_licensed_models"]
+    KN.reset_launches()
+    t1 = time.perf_counter()
+    out = cli_refine.main(argv, kit=kit)
+    torch.cuda.synchronize()
+    cli_launches = dict(KN.LAUNCHES)
+    log(f"[calibrate] python -m sings_tpu_torch.cli.refine {' '.join(argv)} "
+        f"(the kit held in memory) {time.perf_counter() - t1:.3f}s: loss "
+        f"{out['losses'][0]:.5f} -> {out['losses'][-1]:.5f}, launches "
+        f"{cli_launches}")
+    saved = dict(np.load(os.path.join(kit_dir, "score_demo_video",
+                                      "poses_optimized.npz")))
+    if sorted(saved) != sorted(FIT_KEYS) or any(
+            saved[k].shape != kit.smpl[k].shape for k in FIT_KEYS[1:]):
+        raise AssertionError(f"poses_optimized.npz: {sorted(saved)}")
+    if not np.all(np.isfinite(out["losses"])):
+        raise AssertionError("cli.refine's loss is not finite")
+    want = CLI_REFINE_STEPS * frames
+    if (cli_launches["composite_fwd"], cli_launches["composite_bwd"]) != (
+            want, want):
+        raise AssertionError(f"cli.refine launched {cli_launches}, not "
+                             f"{want} of each tiled kernel")
 
 
 def finish_form_rows(rows: list) -> list:

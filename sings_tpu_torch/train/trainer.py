@@ -2,7 +2,8 @@
 
 Trainer(cfg, mode="anim") builds what the JAX constructor builds for an
 animation run: the kit (or an in-memory one), the animation dataset,
-the body template with its cached synthetic calibration, the avatar
+the body template with its synthetic calibration (the two-stage fit of
+preprocess/refine.py, or its cache), the avatar
 config and state, and the latest checkpoint. animate_chunk renders the
 motion 16 frames at a time: decode once, pose a chunk with batched LBS,
 rasterize each frame, quantise to uint8 on the device.
@@ -936,8 +937,16 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _fit_synthetic_body(self):
-        """Load the cached synthetic-template calibration
-        (synthetic_fit.npz in the logdir) written by a training run."""
+        """Geometrically calibrate the synthetic template, or load the
+        calibration cached in the logdir (synthetic_fit.npz).
+
+        Two stages, as in the JAX package (reference
+        ooptimize_smplh.py:263-404): (A) a keypoint-only skeleton fit of
+        the shared bone proportions and per-frame pose/transl against
+        the kit's sapiens coco-133 keypoints; (B) a silhouette+keypoint
+        refinement of all betas and poses against the kit's masks. It
+        runs before self.raster_kw exists, so refine_smpl takes its own
+        raster settings, as the JAX trainer's call does."""
         nb = self.tpl.num_betas
         cache_path = os.path.join(self.logdir, "synthetic_fit.npz")
         if os.path.exists(cache_path):
@@ -952,14 +961,69 @@ class Trainer:
                   f"({data['betas'].shape[-1]} != {nb}); refitting",
                   flush=True)
         if self.cfg.eval:
+            # eval without a calibration cache: keep the kit poses and
+            # the zeroed betas (already sized to the template)
             print("[fit_synthetic] eval mode, no cache: zeroed betas",
                   flush=True)
             return
-        raise NotImplementedError(
-            "fitting the synthetic template (keypoint + silhouette "
-            "refinement) is a later slice of the port (ROADMAP queue A); "
-            "set tpu.auto_fit_synthetic=False, run with eval=True or "
-            "provide synthetic_fit.npz")
+        from ..preprocess.refine import (
+            RefineConfig, SkeletonFitConfig, coco133_body_targets,
+            face_anchor_targets, fit_skeleton, refine_smpl,
+        )
+
+        cam = self.camera
+        d = max(1, min(cam.height, cam.width) // 128)
+        init = {"betas": np.zeros(nb, np.float32),
+                "global_orient": self.kit.smpl["global_orient"],
+                "body_pose": self.kit.smpl["body_pose"],
+                "transl": self.kit.smpl["transl"]}
+        K = np.array([[cam.width / (2 * cam.tan_fovx), 0, cam.width / 2],
+                      [0, cam.height / (2 * cam.tan_fovy), cam.height / 2],
+                      [0, 0, 1]], np.float32)
+        dt = DeviceTemplate.from_host(self.tpl, self.device)
+
+        kp_t = kp_w = face_t = face_w = face_o = None
+        if self.kit.keypoints is not None:
+            kp_t, kp_w = coco133_body_targets(self.kit.keypoints,
+                                              self.kit.keypoint_scores)
+            face_t, face_w = face_anchor_targets(self.kit.keypoints,
+                                                 self.kit.keypoint_scores)
+            beta_mask = np.zeros(nb, np.float32)
+            beta_mask[0] = 1.0
+            if self.tpl.n_bone_betas:
+                beta_mask[-self.tpl.n_bone_betas:] = 1.0
+            res_a = fit_skeleton(
+                dt, K, init, kp_t, kp_w,
+                SkeletonFitConfig(steps=int(self.cfg.tpu.get(
+                    "skeleton_fit_steps", 500))),
+                beta_mask=beta_mask, face_targets=face_t,
+                face_weights=face_w)
+            print(f"[fit_synthetic] keypoint px err "
+                  f"{res_a['px_err'][0]:.2f} -> {res_a['px_err'][-1]:.2f}",
+                  flush=True)
+            init = {k: res_a[k] for k in init}
+            face_o = res_a.get("face_offsets")
+        else:
+            print("[fit_synthetic] no keypoints_coco133 in kit; "
+                  "silhouette-only fit", flush=True)
+
+        cfg = RefineConfig(
+            steps=int(self.cfg.tpu.get("synthetic_fit_steps", 300)),
+            lr=0.01, render_downscale=d,
+            w_keypoints=0.5 if kp_t is not None else 0.0,
+            w_face=0.5 if face_o is not None else 0.0,
+            w_prior=0.05, optimize_betas=True)
+        res = refine_smpl(dt, cam, K, init, self.kit.masks,
+                          keypoints2d=kp_t, keypoint_valid=kp_w, cfg=cfg,
+                          face_targets=face_t, face_weights=face_w,
+                          face_offsets=face_o)
+        print(f"[fit_synthetic] silhouette loss "
+              f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}",
+              flush=True)
+        smpl = {k: res[k] for k in ("betas", "global_orient", "body_pose",
+                                    "transl")}
+        self.kit = self.kit._replace(smpl=smpl)
+        np.savez(cache_path, **smpl)
 
     def save_ckpt(self, iter_s="final") -> str:
         path = os.path.join(self.logdir_ckpt, f"human_{iter_s}.npz")

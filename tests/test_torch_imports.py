@@ -50,12 +50,19 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.scripts._scene",
                  "sings_tpu_torch.scripts.exp_bwd_moments",
                  "sings_tpu_torch.scripts.exp_cumsum_kernel",
-                 "sings_tpu_torch.scripts.exp_bwd_variants"):
+                 "sings_tpu_torch.scripts.exp_bwd_variants",
+                 "sings_tpu_torch.ops.projection",
+                 "sings_tpu_torch.preprocess.refine",
+                 "sings_tpu_torch.preprocess.fit",
+                 "sings_tpu_torch.preprocess.frames",
+                 "sings_tpu_torch.preprocess.masks",
+                 "sings_tpu_torch.cli.refine"):
         assert importlib.util.find_spec(name) is not None, name
 
 
 def test_entry_points_default_to_cuda(tmp_path):
     from sings_tpu_torch.cli.animate import main
+    from sings_tpu_torch.cli.refine import main as refine_main
     from sings_tpu_torch.cli.train import main as train_main
     from sings_tpu_torch.device import resolve_device
 
@@ -70,6 +77,8 @@ def test_entry_points_default_to_cuda(tmp_path):
         main(["-o", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main([f"output_path={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        refine_main(["--kit", str(tmp_path)])
     from sings_tpu_torch.scripts import (
         exp_bwd_moments, exp_bwd_variants, exp_cumsum_kernel,
     )
@@ -78,21 +87,50 @@ def test_entry_points_default_to_cuda(tmp_path):
             script.main([])
 
 
-def test_train_mode_is_a_later_slice():
-    """Training is ported up to its entry point; fitting the synthetic
-    template is a later slice and says so, and unknown modes are
-    refused."""
+def test_train_mode_is_a_later_slice(tmp_path, monkeypatch):
+    """Training no longer waits for a later slice: the synthetic-template
+    fit is ported, and on a kit without keypoints it runs the
+    silhouette-only refine and caches the result (it raised before);
+    unknown modes are still refused. (The name is the test's history.)"""
     import types
+
+    import numpy as np
 
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.data.kit import TrainingKit
+    from sings_tpu_torch.kinematics.body_model import load_template
+    from sings_tpu_torch.ops.graphics import make_camera
+    from sings_tpu_torch.preprocess import refine
     from sings_tpu_torch.train.trainer import Trainer
 
-    stub = types.SimpleNamespace(tpl=types.SimpleNamespace(num_betas=10),
-                                 logdir=ROOT + "/no_such_run",
-                                 cfg=load_config(DEFAULTS))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer._fit_synthetic_body(stub)
+    tpl = load_template(None, "smpl", num_betas=10, synthetic_res=0.5)
+    masks = np.zeros((2, 32, 32), np.float32)
+    masks[:, 4:28, 12:20] = 1.0
+    smpl = {"betas": np.zeros(tpl.num_betas, np.float32),
+            "global_orient": np.tile([[np.pi, 0, 0]], (2, 1)).astype(
+                np.float32),
+            "body_pose": np.zeros((2, 69), np.float32),
+            "transl": np.tile([[0, 0.2, 4.0]], (2, 1)).astype(np.float32)}
+    K = np.array([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]])
+    kit = TrainingKit(images=np.zeros((2, 3, 32, 32), np.float32),
+                      masks=masks, smpl=smpl,
+                      camera=make_camera(np.eye(4), 32, 32, K=K),
+                      train_split=[0], val_split=[1], name="kit")
+    stub = types.SimpleNamespace(
+        tpl=tpl, logdir=str(tmp_path), kit=kit, camera=kit.camera,
+        device=torch.device("cpu"),
+        cfg=load_config(DEFAULTS, None, ["tpu.synthetic_fit_steps=1"]))
+    ran = []
+    for name in ("fit_skeleton", "refine_smpl"):
+        def wrapped(*a, _fn=getattr(refine, name), _name=name, **k):
+            ran.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(refine, name, wrapped)
+    Trainer._fit_synthetic_body(stub)
+    assert ran == ["refine_smpl"]
+    cache = np.load(os.path.join(str(tmp_path), "synthetic_fit.npz"))
+    assert cache["betas"].shape == (tpl.num_betas,)
     with pytest.raises(NotImplementedError, match="mode='eval'"):
         Trainer(load_config(DEFAULTS), mode="eval", device="cpu")
 
