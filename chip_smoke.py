@@ -24,8 +24,9 @@ exp_bwd_variants} at their own sizes. Phases:
 
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
-                each one kernel for both layouts; composite_bwd_variants.cu
-                and chunk_scan_bench.cu) and g++ (mesh_native), timed
+                each one kernel for both layouts; composite_bwd_variants.cu,
+                chunk_scan_bench.cu and grid_grad.cu) and g++
+                (mesh_native), timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
@@ -66,8 +67,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame, bit for bit against the tiled kernels, and the
                 rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
-                composite_fwd and composite_bwd launches from 0, and the
-                forward launches that wrote the state (all of them)
+                composite_fwd, composite_bwd and grid_grad launches from
+                0 (one each a step), and the forward launches that wrote
+                the state (all of them)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
                 and its bound
  11 entry       the training entry point with layout=panel: the
@@ -82,7 +84,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 da_pose turntables; events, live counts, zeroed Adam
                 moments, metrics, checkpoint resume, exports, the native
                 collapse and the panel kernels' launch counts (train()
-                and the whole CLI call) checked
+                and the whole CLI call) checked; grid_grad launches
+                counted in the pre-fit and chunk (one a step) and in the
+                whole CLI call (one a training step)
  12 timing      on the trained avatar the CLI leaves (its first training
                 frame, the loss's cotangents): the forward as in phase 4
                 and the panel backward against its plain version and the
@@ -124,10 +128,23 @@ exp_bwd_variants} at their own sizes. Phases:
                 cotangents), timed, with bounds and the tile load, and
                 the stages' wall times; cli.refine.main --steps 20 on the
                 same kit writes poses_optimized.npz
+ 16 grid bwd    (run after phase 10, on phase 7's trainer) the
+                triplane's grid gradient, ops/grid_grad.py's kernel
+                csrc/grid_grad.cu, at the nested 64^3 field's full width
+                (127,744 queries, multires [1, 2, 4], C 32) and one
+                training step's own cotangent on the features: against
+                its plain version (GRID_RTOL) and bit for bit between two
+                calls; the Function's backward (grids and d/dpts) with
+                the kernel against the same with the plain version; the
+                segment lengths per level; CUDA-event times of the
+                kernel, the Function's backward, the plain version,
+                index_add_ of the same rows and the parent's autograd of
+                the corner gathers; its bound in bytes
 With --profile, stage tables and torch.profiler kernel tables of an
-animation frame (after phase 6), of a training step (after phase 10) and
+animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
-launches a composite kernel must show that kernel's device time. Every
+launches a composite kernel or grid_grad must show that kernel's device
+time, and the triplane's stage no indexing_backward_kernel. Every
 failure raises; the script exits 0 only when every phase passed, and
 then prints the kernels line and, last, the device line.
 """
@@ -276,9 +293,10 @@ SEED = 0
 # panel backward over every check (check_fwd, check_panel)
 KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
                "composite_bwd_panel": 0.0}
-# the CUDA sources, each one kernel for both layouts
+# the CUDA sources: the composite kernels (each one kernel for both
+# layouts), the experiment kernels and the triplane's grid backward
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
-           "chunk_scan_bench"]
+           "chunk_scan_bench", "grid_grad"]
 
 
 def log(msg: str) -> None:
@@ -848,6 +866,13 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
 COMPOSITE_KERNELS = {"composite_fwd": "fwd_window_kernel",
                      "composite_bwd": "bwd_kernel<(anonymous namespace)"
                                       "::Production>"}
+# and every profiled kernel: grid_grad's three passes
+PROFILED_KERNELS = dict(COMPOSITE_KERNELS, grid_grad="grid_grad_")
+
+
+def composite_ms(comp: dict) -> float:
+    """The composite kernels' device time in a profiled call's table."""
+    return sum(comp[k] for k in COMPOSITE_KERNELS)
 
 
 # In the training context torch.profiler (CUPTI) drops the first kernel
@@ -861,9 +886,9 @@ SPIN = "spin_kernel"
 
 def profiled(fn) -> tuple:
     """One call of fn under torch.profiler, after the preamble: the
-    device time (ms) of the kernels it launched, that of the composite
-    kernels among them by name, the preamble kernels seen, and the
-    profile."""
+    device time (ms) of the kernels it launched, that of the port's
+    kernels among them by name (PROFILED_KERNELS), the preamble kernels
+    seen, and the profile."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -878,7 +903,7 @@ def profiled(fn) -> tuple:
     seen = sum(e.count for e in evs if SPIN in e.key)
     evs = [e for e in evs if SPIN not in e.key]
     comp = {name: sum(e.self_device_time_total for e in evs if key in e.key)
-            / 1e3 for name, key in COMPOSITE_KERNELS.items()}
+            / 1e3 for name, key in PROFILED_KERNELS.items()}
     return (sum(e.self_device_time_total for e in evs) / 1e3, comp, seen,
             prof)
 
@@ -967,7 +992,7 @@ def profile(trainer, gs_attrs, frame0, kw, out_dir: str) -> None:
             if "composite" in name or "rasterize" in name:
                 require_seen(name, comp, ["composite_fwd"], prof, out_dir)
             lines.append(f"{name:45s} {t:10.4f} {d / per:10.4f} "
-                         f"{sum(comp.values()) / per:10.4f} {seen:4d}")
+                         f"{composite_ms(comp) / per:10.4f} {seen:4d}")
 
         def chunk():
             trainer.animate_chunk(chunk_size=16, max_frames=16,
@@ -1255,6 +1280,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
     from sings_tpu_torch.losses.photometric import draw_step_randoms
+    from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.train.trainer import Trainer
     from sings_tpu_torch.tree import tree_leaves
@@ -1349,6 +1375,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     state = (trainer.params, trainer.buffers, trainer.opt_state)
     p0 = trainer.params
     K.reset_launches()
+    GG.reset_launches()
     torch.cuda.synchronize()
     times, all_losses, all_skipped = [], [], []
     for c in range(2):
@@ -1363,7 +1390,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_losses += losses_h.tolist()
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, grid_grad=GG.LAUNCHES["grid_grad"])
     p, b, o = state
     terms = {name: [round(x, 6) for x in v.cpu().tolist()]
              for name, v in metrics.items()}
@@ -1394,7 +1421,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"Adam count {int(o.count)}")
     if accum <= 0.0:
         raise AssertionError("xyz_grad_accum is zero on every visible slot")
-    for name in ("composite_fwd", "composite_bwd"):
+    # one composite forward and backward a step, and one grid_grad (the
+    # triplane's backward)
+    for name in ("composite_fwd", "composite_bwd", "grid_grad"):
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
@@ -1423,8 +1452,13 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)"
         f", 1 launch per "
         f"step | {smi}")
+    # ---- 16 the triplane's grid backward at the step's cotangent
+    gg_row, field_step = grid_backward(
+        trainer.params.triplane, trainer.params.xyz,
+        trainer.avatar_cfg.triplane,
+        step_feature_cotangent(trainer, batches), launches["grid_grad"], smi)
     if profile_dir:
-        profile_train(trainer, batches, bargs, bkw, profile_dir)
+        profile_train(trainer, batches, bargs, bkw, field_step, profile_dir)
     # the backward's experiment forms on this frame (phase 14's checks)
     forms_on_frame("phase 7 training frame", bargs, bkw, binning, smi)
     bwd_row = {
@@ -1439,7 +1473,205 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     }
     # ---- 11 the training entry point, 12 its timing
     del p, b, o, state, bargs, feats, binning, fwd_out, gout, entry
-    return [bwd_row] + run_entry(work, dev, trainer, batches, smi)
+    del field_step
+    return [bwd_row, gg_row] + run_entry(work, dev, trainer, batches, smi)
+
+
+# ---------------------------------------------------------------------------
+# the triplane's grid backward (phase 16, on phase 7's trainer)
+
+# the kernel against its plain version, per plane: both sum each cell in
+# float64 and round once (in another order), then add the same four
+# corners in float32 in JAX's order, so they differ by a few ulps of the
+# plane's largest value at most
+GRID_RTOL = 1e-6
+GRID_REPLACES = ("sings_tpu/fields/triplane.py:378 (_triplane_nested_bwd, "
+                 "XLA, no pallas_call)")
+
+
+class plain_grid_grad:
+    """Route the triplane's grid gradients through the plain version for
+    one comparison (the port itself never does)."""
+
+    def __enter__(self):
+        from sings_tpu_torch.ops import grid_grad as GG
+
+        self.saved = GG.grid_grad_cuda
+        GG.grid_grad_cuda = GG.grid_grad_plain
+        return self
+
+    def __exit__(self, *exc):
+        from sings_tpu_torch.ops import grid_grad as GG
+
+        GG.grid_grad_cuda = self.saved
+
+
+def step_feature_cotangent(trainer, batches):
+    """The cotangent that one training step (at TRAIN_STEP0, frame 0)
+    sends into the triplane features: a hook on triplane_features'
+    output in model/avatar.py for one train_step."""
+    from sings_tpu_torch.losses.regularizers import edge_stat
+    from sings_tpu_torch.model import avatar as AV
+
+    tr = trainer
+    batch = {name: v[0] for name, v in batches.items()}
+    es = edge_stat(AV.get_canon_xyz(tr.params, tr.buffers, tr.avatar_cfg),
+                   tr.buffers.alive)
+    caught = []
+    orig = AV.triplane_features
+
+    def hooked(*a, **k):
+        f = orig(*a, **k)
+        if f.requires_grad:
+            f.register_hook(lambda g: caught.append(g.detach().clone()))
+        return f
+
+    AV.triplane_features = hooked
+    try:
+        tr.train_step(tr.params, tr.buffers, tr.opt_state, tr.cache, batch,
+                      torch.Generator(device=tr.device).manual_seed(SEED),
+                      TRAIN_STEP0, 0, tr.region_lap, tr.region_lap,
+                      tr.lap_pos_w, tr.lap_color_w, edge_stat=es)
+    finally:
+        AV.triplane_features = orig
+    if len(caught) != 1:
+        raise AssertionError(f"{len(caught)} feature cotangents in a step")
+    return caught[0]
+
+
+def grid_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
+                  smi: str) -> tuple:
+    """Phase 16: the triplane's grid gradient (ops/grid_grad.py, the
+    kernel csrc/grid_grad.cu) at full width on the given field, points
+    and feature cotangent: the kernel against its plain version, twice
+    for its bits; the Function's backward (the kernel) against the same
+    with the plain version, grids and d/dpts; the segment lengths; CUDA-
+    event times of the kernel, the Function's backward, the plain
+    version, index_add_ of the same rows and the parent's autograd of
+    the corner gathers; the bound. Returns (kernels-line row, one
+    forward and backward of the field at these inputs, for the
+    profile)."""
+    from sings_tpu_torch.fields import triplane as TT
+    from sings_tpu_torch.ops import grid_grad as GG
+
+    grids = [p for planes in triplane["grids"] for p in planes]
+    meta = tuple((a, b, p.shape[1], p.shape[2]) for planes in
+                 triplane["grids"] for p, (a, b) in zip(planes, TT.COO_COMBS))
+    if not (tcfg.nested and TT._nestable(triplane["grids"], tcfg.multires)):
+        raise AssertionError("the recipe's triplane is not nested")
+    with torch.no_grad():
+        q = TT.normalize_aabb(xyz, tcfg.bounds)
+        _, saved = TT.nested_forward(meta, q, grids)
+        gouts = TT.plane_cotangents(gfeat.contiguous(), saved.samples)
+        skeys, orders = GG.sort_keys(saved.keys)
+    args = (skeys, orders, saved.txs.contiguous(), saved.tys.contiguous(),
+            gouts, saved.layout)
+    got = GG.grid_grad_cuda(*args)
+    again = GG.grid_grad_cuda(*args)
+    want = GG.grid_grad_plain(*args)
+    torch.cuda.synchronize()
+    max_err, worst = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"grid_grad plane {i}: not finite")
+        max_err, worst = max(max_err, err), max(worst, err / scale)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again))
+    n, c = gfeat.shape[0], gouts.shape[2]
+    log(f"[grid bwd] {len(grids)} planes {[tuple(g.shape) for g in grids]}"
+        f", {n} queries ({int((xyz.abs().amax(dim=1) == 0).sum())} at xyz "
+        f"= 0), C {c}: kernel vs plain max_abs_err {max_err:.3e}, "
+        f"{worst:.3e} of a plane's largest value; two calls bit for bit "
+        f"equal: {same}")
+    if worst > GRID_RTOL or not same:
+        raise AssertionError("grid_grad disagrees with its plain version "
+                             "or differs between two calls")
+    # per level: occupied cells, the longest and the mean segment
+    for lvl in range(len(meta) // 3):
+        lens = []
+        for gi, plane0, shift2, *_ in GG.problems(saved.layout):
+            if plane0 // 3 == lvl:
+                lens.append(torch.unique_consecutive(
+                    skeys[gi] >> shift2, return_counts=True)[1])
+        lens = torch.cat(lens)
+        log(f"[grid bwd] level {lvl} ({meta[lvl * 3][2]}x{meta[lvl * 3][3]}"
+            f" points): {lens.numel()} occupied cells over 3 orientations, "
+            f"longest segment {int(lens.max())}, mean "
+            f"{float(lens.float().mean()):.2f}")
+
+    # the Function's backward, kernel against plain
+    pts = xyz.detach().clone().requires_grad_(True)
+    leaves = [g.detach().clone().requires_grad_(True) for g in grids]
+    s_scales = len(meta) // 3
+    field = {"grids": [leaves[3 * s:3 * s + 3] for s in range(s_scales)]}
+    feats = TT.triplane_features(field, pts, tcfg)
+
+    def function_bwd():
+        return torch.autograd.grad(feats, [pts] + leaves, gfeat,
+                                   retain_graph=True)
+
+    GG.reset_launches()
+    d_k = function_bwd()
+    if GG.LAUNCHES["grid_grad"] != 1:
+        raise AssertionError("the Function's backward did not launch "
+                             "grid_grad once")
+    with plain_grid_grad():
+        d_p = function_bwd()
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(d_k, d_p)]
+    log(f"[grid bwd] Function backward, kernel vs plain (share of the "
+        f"largest value): d/dpts {errs[0]:.3e}, grids {max(errs[1:]):.3e}")
+    if max(errs) > GRID_RTOL:
+        raise AssertionError("the Function's gradients disagree with the "
+                             "plain version's")
+
+    # times
+    ms = cuda_ms(lambda: GG.grid_grad_cuda(*args))
+    fn_ms = cuda_ms(function_bwd, n=10)
+    plain_ms = cuda_ms(lambda: GG.grid_grad_plain(*args), n=3, warm=1)
+    rows = GG.cell_rows(*args)
+    cells = torch.cat([r[0] for r in rows])
+    rows = torch.cat([r[1] for r in rows])
+    acc = torch.zeros((GG.cell_bases(saved.layout)[-1], 4 * c),
+                      device=rows.device)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, cells, rows))
+    del rows, cells, acc
+    # the parent's backward: autograd of the corner gathers (the same
+    # forward outside the Function)
+    old = TT.nested_forward(meta, TT.normalize_aabb(pts, tcfg.bounds),
+                            leaves)[0]
+    old_ms = cuda_ms(lambda: torch.autograd.grad(
+        old, [pts] + leaves, gfeat, retain_graph=True), n=3, warm=1)
+    del old
+    # bytes: the sorted keys (int32) and orders (int64), tx, ty and the
+    # cotangents read once, the gradients written once
+    p_ = len(grids)
+    nbytes = (sum(k.numel() * 12 for k in skeys) + 4 * p_ * n * (2 + c)
+              + 4 * sum(g.numel() for g in grids))
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"[timing] grid_grad {ms:.4f} ms, the Function's backward "
+        f"{fn_ms:.4f} ms (sort, product rule, coordinate gradient and the "
+        f"kernel), plain {plain_ms:.3f} ms, index_add_ of the same rows "
+        f"{lib_ms:.4f} ms, the parent's autograd of the gathers "
+        f"{old_ms:.3f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes), "
+        f"{launches} launches in 16 steps | {smi}")
+    row = {
+        "name": "grid_grad", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/grid_grad.cu",
+        "replaces": GRID_REPLACES, "launches": launches,
+        "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
+        "function_bwd_ms": fn_ms, "old_autograd_ms": old_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": lib_ms,
+    }
+
+    def field_step():
+        f = TT.triplane_features(field, pts, tcfg)
+        return torch.autograd.grad(f, [pts] + leaves, gfeat)
+
+    return row, field_step
 
 
 # ---------------------------------------------------------------------------
@@ -1457,15 +1689,18 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
     from sings_tpu_torch.mesh import native
+    from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.train.trainer import Trainer
     from sings_tpu_torch.tree import tree_leaves
 
     t0 = time.time()
     old.cfg.train.init_steps = RECIPE_INIT_STEPS
+    GG.reset_launches()
     old._init_attrs()
     torch.cuda.synchronize()
     t_fit = time.time() - t0
+    fit_launches = GG.LAUNCHES["grid_grad"]
     k = len(batches["idx"])
     (old.params, old.buffers, old.opt_state, losses, skipped,
      _) = old.train_scan(old.params, old.buffers, old.opt_state, old.cache,
@@ -1475,7 +1710,14 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     log(f"[entry] pre-fit {RECIPE_INIT_STEPS} steps in {t_fit:.1f}s, then "
         f"steps {CKPT_STEP - k}-{CKPT_STEP - 1}: losses "
         f"{[round(x, 4) for x in losses.tolist()]}, skipped "
-        f"{int(skipped.sum())}")
+        f"{int(skipped.sum())}; grid_grad launches: {fit_launches} in the "
+        f"pre-fit, {GG.LAUNCHES['grid_grad'] - fit_launches} in the chunk")
+    # the pre-fit trains the grids (not xyz) and each step the grids and
+    # xyz: one triplane backward each
+    if (fit_launches, GG.LAUNCHES["grid_grad"]) != (RECIPE_INIT_STEPS,
+                                                    RECIPE_INIT_STEPS + k):
+        raise AssertionError("grid_grad launches differ from one per "
+                             "pre-fit step and training step")
     old.step = CKPT_STEP
     ck_path = old.save_ckpt(f"{CKPT_STEP:06d}")
     saved = [old.params, old.opt_state]
@@ -1573,6 +1815,7 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     # ---- 11 main path: the CLI, launches counted from 0
     Trainer.train = train_checked
     K.reset_launches()
+    GG.reset_launches()
     torch.cuda.synchronize()
     t_cli = time.perf_counter()
     try:
@@ -1654,6 +1897,13 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     if window != want or launches != want_all:
         raise AssertionError("panel kernel launches differ from the count "
                              "the CLI run implies")
+    # the triplane's backward: once a training step; the resumed Trainer
+    # runs no pre-fit, and validation's pose refine, the density events
+    # and the exports take no gradient of the field
+    log(f"[entry] grid_grad launches in the whole CLI call "
+        f"{GG.LAUNCHES['grid_grad']}, expected {n_steps} (one a step)")
+    if GG.LAUNCHES["grid_grad"] != n_steps:
+        raise AssertionError("grid_grad launches differ from one a step")
     # only the forwards that a backward follows write the window-entry
     # state: the steps and the refine steps, not the validation's
     # renders under no_grad nor the exports
@@ -1809,9 +2059,11 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
     return rows
 
 
-def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
+def profile_train(trainer, batches, bargs, bkw, field_step,
+                  out_dir: str) -> None:
     """Stage times of one full-width training step (CUDA events, each
-    stage alone) and a torch.profiler trace of one 8-step chunk."""
+    stage alone) and a torch.profiler trace of one 8-step chunk.
+    field_step: one triplane forward and backward (phase 16's)."""
     from sings_tpu_torch.losses.photometric import (
         draw_step_randoms, photometric_loss,
     )
@@ -1886,6 +2138,7 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
             height=tr.camera.height, width=tr.camera.width, **rkw))
     stages = [
         ("avatar forward (decode + pose)", lambda: fwd()),
+        ("triplane forward+backward", field_step),
         ("rasterize forward", raster),
         ("composite_bwd kernel", lambda: K.composite_bwd_cuda(*bargs,
                                                               **bkw)),
@@ -1904,19 +2157,31 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
     # the composite kernels each stage launches
     needs = {"rasterize forward": ["composite_fwd"],
              "composite_bwd kernel": ["composite_bwd"],
-             "whole train_step": ["composite_fwd", "composite_bwd"]}
+             "triplane forward+backward": ["grid_grad"],
+             "whole train_step": ["composite_fwd", "composite_bwd",
+                                  "grid_grad"]}
     lines = [f"{'stage':40s} {'events ms':>10s} {'kernels ms':>10s} "
-             f"{'composite':>10s} {'pre':>4s}  (events: 5 back-to-back "
-             "calls, host issue included; kernels: device time, profiler; "
-             "composite: the composite kernels' share; pre: of the "
-             f"{PREAMBLE} preamble kernels, those the profiler recorded)"]
+             f"{'composite':>10s} {'grid_grad':>10s} {'pre':>4s}  (events: "
+             "5 back-to-back calls, host issue included; kernels: device "
+             "time, profiler; composite, grid_grad: those kernels' share; "
+             f"pre: of the {PREAMBLE} preamble kernels, those the profiler "
+             "recorded)"]
     for name, fn in stages:
         t = cuda_ms(fn, n=5, warm=1)
         d, comp, seen, prof = profiled(fn)
         if name in needs:
             require_seen(name, comp, needs[name], prof, out_dir)
+        if name == "triplane forward+backward":
+            # the field's backward launches no autograd scatter of its
+            # corner gathers any more
+            scatter = [e for e in prof.key_averages()
+                       if "indexing_backward" in e.key]
+            if scatter:
+                raise AssertionError(f"the triplane's backward still runs "
+                                     f"{[e.key for e in scatter]}")
         lines.append(f"{name:40s} {t:10.4f} {d:10.4f} "
-                     f"{sum(comp.values()):10.4f} {seen:4d}")
+                     f"{composite_ms(comp):10.4f} "
+                     f"{comp['grid_grad']:10.4f} {seen:4d}")
 
     def chunk():
         out = tr.train_scan(tr.params, tr.buffers, tr.opt_state, tr.cache,
@@ -1930,15 +2195,21 @@ def profile_train(trainer, batches, bargs, bkw, out_dir: str) -> None:
     chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, comp, _, prof = profiled(chunk)
-    require_seen("8-step chunk", comp, ["composite_fwd", "composite_bwd"],
-                 prof, out_dir)
+    require_seen("8-step chunk", comp, ["composite_fwd", "composite_bwd",
+                                        "grid_grad"], prof, out_dir)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:15]
+    scatter = [e for e in kernels if "indexing_backward" in e.key]
     lines.append(f"8-step chunk: wall {wall_ms:.3f} ms unprofiled (host "
                  f"clock), device kernels {busy_ms:.3f} ms (busy "
-                 f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled wall)")
+                 f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled wall), "
+                 f"grid_grad {comp['grid_grad']:.3f} ms; "
+                 f"indexing_backward_kernel (none from the triplane: its "
+                 f"stage above runs none) "
+                 f"{sum(e.self_device_time_total for e in scatter) / 1e3:.3f}"
+                 f" ms in {sum(e.count for e in scatter)} launches")
     for e in top:
         lines.append(f"  {e.self_device_time_total / 1e3:10.3f} ms "
                      f"{e.count:6d}x  {e.key[:90]}")
@@ -2424,7 +2695,7 @@ def profile_calibrate(calls: dict, out_dir: str) -> None:
                          reverse=True)[:12]
         wall = 1e3 * call["seconds"] / len(call["out"]["losses"])
         lines.append(f"{name:14s} {wall:10.3f} {busy / n:10.4f} "
-                     f"{sum(comp.values()) / n:10.4f} "
+                     f"{composite_ms(comp) / n:10.4f} "
                      f"{100 * busy / n / wall:5.1f}% {seen:4d}")
     lines.append("largest kernels of 2 refine steps:")
     for e in top:

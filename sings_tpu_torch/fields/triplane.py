@@ -7,15 +7,24 @@ planes of a scale; concatenation over scales. Parameters are the JAX
 pytree {"grids": [[plane_xy, plane_xz, plane_yz], ...]} of (C, H, W)
 tensors.
 
-Gradients are PyTorch autograd of the forward (a scatter-add into the
-grids; the JAX package's custom backward is a sorted segment reduction
-of the same sums). Two forward paths, as in JAX:
-  * nested (cfg.nested and power-of-two cell towers): each orientation
-    is located once at the finest level; level l's cell is the fine
-    cell shifted right by its level shift. This is the row that JAX's
+Three paths, as in JAX (triplane_features(..., fused=)), each with
+the JAX package's custom backward:
+  * nested (fused, cfg.nested and power-of-two cell towers):
+    _TriplaneNested (JAX's _triplane_nested). Each orientation is
+    located once at the finest level; level l's cell is the fine cell
+    shifted right by its level shift. This is the row that JAX's
     combined corner table (_nested_gather) holds at the fine cell, read
-    from the level's own corner table instead of a broadcast copy.
-  * plain: one grid_sample_2d per plane.
+    from the level's own corner table instead of a broadcast copy. The
+    grid gradients of all levels of an orientation come from one
+    Morton-keyed sort (ops/grid_grad.py, "morton" groups).
+  * fused (every plane h, w >= 2): _TriplaneFused (JAX's
+    _triplane_fused), one combined key plane base + cell and one
+    reduction over all planes ("cells" group).
+  * fused=False: one grid_sample_2d per plane (its own _SampleGrid).
+The product rule over each scale's Hadamard product and the coordinate
+gradients (ops/sampling.py::_coord_grad) are plain tensor ops, as JAX
+leaves them to XLA; the grid gradients are ops/grid_grad.py's kernel on
+the card.
 """
 from __future__ import annotations
 
@@ -24,8 +33,10 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..ops import grid_grad as GG
 from ..ops.sampling import (
-    _combine, _corner_coords, _corner_table, _weights, grid_sample_2d,
+    _combine, _coord_grad, _corner_coords, _corner_table, _sample_main,
+    _weights, grid_sample_2d,
 )
 
 
@@ -92,35 +103,153 @@ def _nestable(grids, multires) -> bool:
     return True
 
 
-def _nested_samples(grids, q: torch.Tensor) -> list:
-    """Per-plane samples, scale-major plane order."""
-    s_scales = len(grids)
-    samples = [None] * (3 * s_scales)
-    for o, (a, b) in enumerate(COO_COMBS):
+def _fused_out(samples: list) -> torch.Tensor:
+    return torch.cat([samples[3 * s] * samples[3 * s + 1] * samples[3 * s + 2]
+                      for s in range(len(samples) // 3)], dim=-1)
+
+
+class Saved(NamedTuple):
+    """What a fused or nested forward keeps for its backward: tx, ty
+    (P, N), the per-plane samples (N, C) and corner rows (N, 4, C), each
+    sort group's keys and the grid-gradient layout."""
+    txs: torch.Tensor
+    tys: torch.Tensor
+    samples: list
+    corners: list
+    keys: list
+    layout: GG.Layout
+
+
+def fused_forward(meta: tuple, q: torch.Tensor, grids) -> tuple:
+    """Every plane sampled on its own (JAX's _fused_samples); one
+    combined key, plane base + cell. Returns (features, Saved)."""
+    samples, corners, cells, txs, tys = [], [], [], [], []
+    base = 0
+    for plane, (a, b, h, w) in zip(grids, meta):
+        out, v, cell, tx, ty = _sample_main(plane, q[:, (a, b)])
+        samples.append(out)
+        corners.append(v)
+        cells.append(cell + base)
+        txs.append(tx)
+        tys.append(ty)
+        base += (h - 1) * (w - 1)
+    layout = GG.Layout(planes=tuple((h, w) for (_a, _b, h, w) in meta),
+                       groups=(GG.Group("cells", tuple(range(len(meta)))),))
+    return _fused_out(samples), Saved(
+        torch.stack(txs), torch.stack(tys), samples, corners,
+        [torch.cat(cells).to(torch.int32)], layout)
+
+
+def nested_forward(meta: tuple, q: torch.Tensor, grids) -> tuple:
+    """Power-of-two cell towers: each orientation located once at the
+    finest level, level l's cell the fine cell shifted; one Morton key
+    per orientation. Returns (features, Saved)."""
+    s_scales = len(meta) // 3
+    samples, corners = [None] * len(meta), [None] * len(meta)
+    txs, tys = [None] * len(meta), [None] * len(meta)
+    keys, groups = [], []
+    for o in range(3):
+        a, b, hf, wf = meta[(s_scales - 1) * 3 + o]
         coords = q[:, (a, b)]
-        _, hf, wf = grids[-1][o].shape
         x0f, y0f, _, _ = _corner_coords(coords, hf, wf)
+        shifts = []
         for l in range(s_scales):
-            plane = grids[l][o]
+            i = l * 3 + o
+            plane = grids[i]
             c, h, w = plane.shape
             shift = ((wf - 1) // (w - 1)).bit_length() - 1
             cell = (y0f >> shift) * (w - 1) + (x0f >> shift)
             v = _corner_table(plane)[cell].reshape(-1, 4, c)
             _, _, tx, ty = _corner_coords(coords, h, w)
-            samples[l * 3 + o] = _combine(v, _weights(tx, ty))
-    return samples
+            samples[i] = _combine(v, _weights(tx, ty))
+            corners[i], txs[i], tys[i] = v, tx, ty
+            shifts.append(shift)
+        keys.append(GG.morton_codes(x0f, y0f))
+        groups.append(GG.Group("morton", tuple(
+            l * 3 + o for l in range(s_scales)), tuple(shifts)))
+    layout = GG.Layout(planes=tuple((h, w) for (_a, _b, h, w) in meta),
+                       groups=tuple(groups))
+    return _fused_out(samples), Saved(torch.stack(txs), torch.stack(tys),
+                                      samples, corners, keys, layout)
 
 
-def triplane_features(params: dict, pts: torch.Tensor,
-                      cfg: TriplaneConfig) -> torch.Tensor:
+def plane_cotangents(gout: torch.Tensor, samples: list) -> torch.Tensor:
+    """(P, N, C) cotangents of the per-plane samples: the product rule
+    over each scale's Hadamard product, in JAX's order."""
+    n_planes = len(samples)
+    n, c = samples[0].shape
+    gouts = torch.empty((n_planes, n, c), dtype=gout.dtype,
+                        device=gout.device)
+    for s in range(n_planes // 3):
+        g_s = gout[:, s * c:(s + 1) * c]
+        v0, v1, v2 = samples[3 * s], samples[3 * s + 1], samples[3 * s + 2]
+        torch.mul(g_s * v1, v2, out=gouts[3 * s])
+        torch.mul(g_s * v0, v2, out=gouts[3 * s + 1])
+        torch.mul(g_s * v0, v1, out=gouts[3 * s + 2])
+    return gouts
+
+
+def coord_grads(meta: tuple, q: torch.Tensor, saved: Saved,
+                gouts: torch.Tensor) -> torch.Tensor:
+    """(N, 3) d q, each plane's weight path added in plane order."""
+    dq = torch.zeros_like(q)
+    for i, (a, b, h, w) in enumerate(meta):
+        d = _coord_grad(q[:, (a, b)], h, w, saved.txs[i], saved.tys[i],
+                        saved.corners[i], gouts[i])
+        dq[:, a] += d[:, 0]
+        dq[:, b] += d[:, 1]
+    return dq
+
+
+class _Triplane(torch.autograd.Function):
+    """The fused and nested paths as custom backwards (JAX's
+    _triplane_fused and _triplane_nested): apply(meta, q, *grids), meta
+    = (axis_a, axis_b, H, W) per plane, scale-major."""
+
+    @classmethod
+    def forward(cls, ctx, meta, q, *grids):
+        out, saved = cls.run_forward(meta, q, grids)
+        ctx.meta, ctx.layout = meta, saved.layout
+        ctx.save_for_backward(q, saved.txs, saved.tys, *saved.samples,
+                              *saved.corners, *saved.keys)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        q, txs, tys, *rest = ctx.saved_tensors
+        p = len(ctx.meta)
+        saved = Saved(txs, tys, rest[:p], rest[p:2 * p], list(rest[2 * p:]),
+                      ctx.layout)
+        gouts = plane_cotangents(gout.contiguous(), saved.samples)
+        dq = coord_grads(ctx.meta, q, saved, gouts) \
+            if ctx.needs_input_grad[1] else None
+        dgrids = [None] * p
+        if any(ctx.needs_input_grad[2:]):
+            dgrids = GG.segment_grads(saved.keys, txs, tys, gouts,
+                                      ctx.layout)
+        return (None, dq, *dgrids)
+
+
+class _TriplaneFused(_Triplane):
+    run_forward = staticmethod(fused_forward)
+
+
+class _TriplaneNested(_Triplane):
+    run_forward = staticmethod(nested_forward)
+
+
+def triplane_features(params: dict, pts: torch.Tensor, cfg: TriplaneConfig,
+                      *, fused: bool = True) -> torch.Tensor:
     """(N, 3) points -> (N, feat_dim) features."""
     q = normalize_aabb(pts, cfg.bounds)
     grids = params["grids"]
-    if cfg.nested and _nestable(grids, cfg.multires):
-        samples = _nested_samples(grids, q)
-        return torch.cat(
-            [samples[3 * s] * samples[3 * s + 1] * samples[3 * s + 2]
-             for s in range(len(grids))], dim=-1)
+    meta = tuple((a, b, p.shape[1], p.shape[2])
+                 for planes in grids for p, (a, b) in zip(planes, COO_COMBS))
+    flat = [p for planes in grids for p in planes]
+    if fused and cfg.nested and _nestable(grids, cfg.multires):
+        return _TriplaneNested.apply(meta, q, *flat)
+    if fused and all(h >= 2 and w >= 2 for (_a, _b, h, w) in meta):
+        return _TriplaneFused.apply(meta, q, *flat)
     outs = []
     for planes in grids:
         interp = 1.0

@@ -56,7 +56,8 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.preprocess.fit",
                  "sings_tpu_torch.preprocess.frames",
                  "sings_tpu_torch.preprocess.masks",
-                 "sings_tpu_torch.cli.refine"):
+                 "sings_tpu_torch.cli.refine",
+                 "sings_tpu_torch.ops.grid_grad"):
         assert importlib.util.find_spec(name) is not None, name
 
 
