@@ -25,7 +25,7 @@ exp_bwd_variants} at their own sizes. Phases:
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
                 each one kernel for both layouts; composite_bwd_variants.cu,
-                chunk_scan_bench.cu and grid_grad.cu) and g++
+                chunk_scan_bench.cu and triplane_bwd.cu) and g++
                 (mesh_native), timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
@@ -67,7 +67,7 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame, bit for bit against the tiled kernels, and the
                 rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
-                composite_fwd, composite_bwd and grid_grad launches from
+                composite_fwd, composite_bwd and triplane_bwd launches from
                 0 (one each a step), and the forward launches that wrote
                 the state (all of them)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
@@ -84,7 +84,7 @@ exp_bwd_variants} at their own sizes. Phases:
                 da_pose turntables; events, live counts, zeroed Adam
                 moments, metrics, checkpoint resume, exports, the native
                 collapse and the panel kernels' launch counts (train()
-                and the whole CLI call) checked; grid_grad launches
+                and the whole CLI call) checked; triplane_bwd launches
                 counted in the pre-fit and chunk (one a step) and in the
                 whole CLI call (one a training step)
  12 timing      on the trained avatar the CLI leaves (its first training
@@ -128,22 +128,27 @@ exp_bwd_variants} at their own sizes. Phases:
                 cotangents), timed, with bounds and the tile load, and
                 the stages' wall times; cli.refine.main --steps 20 on the
                 same kit writes poses_optimized.npz
- 16 grid bwd    (run after phase 10, on phase 7's trainer) the
-                triplane's grid gradient, ops/grid_grad.py's kernel
-                csrc/grid_grad.cu, at the nested 64^3 field's full width
-                (127,744 queries, multires [1, 2, 4], C 32) and one
-                training step's own cotangent on the features: against
-                its plain version (GRID_RTOL) and bit for bit between two
-                calls; the Function's backward (grids and d/dpts) with
-                the kernel against the same with the plain version; the
-                segment lengths per level; CUDA-event times of the
-                kernel, the Function's backward, the plain version,
-                index_add_ of the same rows and the parent's autograd of
-                the corner gathers; its bound in bytes
+ 16 triplane bwd (run after phase 10, on phase 7's trainer) the
+                triplane's backward, ops/grid_grad.py's kernel
+                csrc/triplane_bwd.cu (the product rule, the coordinate and
+                the grid gradients after the sorts), at the nested 64^3
+                field's full width (127,744 queries, multires [1, 2, 4],
+                C 32) and one training step's own cotangent on the
+                features: against its plain version (grids within
+                GRID_RTOL, dq within the JAX tolerance) and bit for bit
+                between two calls; the rows of zero cotangent (the dead
+                slots) and their dq; the Function's backward (grids and
+                d/dpts) with the kernel against the same with the plain
+                version, one launch; the segment lengths per level;
+                CUDA-event times of the kernel, the sorts, the Function's
+                backward, the plain version and index_add_ of the same
+                rows; its bound in bytes; the peak allocated memory of
+                one training step (phase 7's step at frame 0); under
+                --profile each of the kernel's launches' device time
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
-launches a composite kernel or grid_grad must show that kernel's device
+launches a composite kernel or triplane_bwd must show that kernel's device
 time, and the triplane's stage no indexing_backward_kernel. Every
 failure raises; the script exits 0 only when every phase passed, and
 then prints the kernels line and, last, the device line.
@@ -153,6 +158,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -296,7 +302,7 @@ KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
 # the CUDA sources: the composite kernels (each one kernel for both
 # layouts), the experiment kernels and the triplane's grid backward
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
-           "chunk_scan_bench", "grid_grad"]
+           "chunk_scan_bench", "triplane_bwd"]
 
 
 def log(msg: str) -> None:
@@ -866,8 +872,8 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
 COMPOSITE_KERNELS = {"composite_fwd": "fwd_window_kernel",
                      "composite_bwd": "bwd_kernel<(anonymous namespace)"
                                       "::Production>"}
-# and every profiled kernel: grid_grad's three passes
-PROFILED_KERNELS = dict(COMPOSITE_KERNELS, grid_grad="grid_grad_")
+# and every profiled kernel: the triplane backward's four kernels
+PROFILED_KERNELS = dict(COMPOSITE_KERNELS, triplane_bwd="triplane_bwd_")
 
 
 def composite_ms(comp: dict) -> float:
@@ -1390,7 +1396,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_losses += losses_h.tolist()
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
-    launches = dict(K.LAUNCHES, grid_grad=GG.LAUNCHES["grid_grad"])
+    launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
     p, b, o = state
     terms = {name: [round(x, 6) for x in v.cpu().tolist()]
              for name, v in metrics.items()}
@@ -1421,9 +1427,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"Adam count {int(o.count)}")
     if accum <= 0.0:
         raise AssertionError("xyz_grad_accum is zero on every visible slot")
-    # one composite forward and backward a step, and one grid_grad (the
+    # one composite forward and backward a step, and one triplane_bwd (the
     # triplane's backward)
-    for name in ("composite_fwd", "composite_bwd", "grid_grad"):
+    for name in ("composite_fwd", "composite_bwd", "triplane_bwd"):
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
@@ -1452,11 +1458,12 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)"
         f", 1 launch per "
         f"step | {smi}")
-    # ---- 16 the triplane's grid backward at the step's cotangent
-    gg_row, field_step = grid_backward(
+    # ---- 16 the triplane's backward at the step's cotangent
+    gfeat, peak = step_feature_cotangent(trainer, batches)
+    gg_row, field_step = triplane_backward(
         trainer.params.triplane, trainer.params.xyz,
-        trainer.avatar_cfg.triplane,
-        step_feature_cotangent(trainer, batches), launches["grid_grad"], smi)
+        trainer.avatar_cfg.triplane, gfeat, launches["triplane_bwd"], peak,
+        smi, profile_dir)
     if profile_dir:
         profile_train(trainer, batches, bargs, bkw, field_step, profile_dir)
     # the backward's experiment forms on this frame (phase 14's checks)
@@ -1478,38 +1485,44 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the triplane's grid backward (phase 16, on phase 7's trainer)
+# the triplane's backward (phase 16, on phase 7's trainer)
 
-# the kernel against its plain version, per plane: both sum each cell in
-# float64 and round once (in another order), then add the same four
-# corners in float32 in JAX's order, so they differ by a few ulps of the
-# plane's largest value at most
+# the kernel's grid gradients against its plain version, per plane: both
+# sum each cell in float64 and round once (in another order), then add
+# the same four corners in float32 in JAX's order, so they differ by a
+# few ulps of the plane's largest value at most
 GRID_RTOL = 1e-6
+# its dq: each row's channel sums (the weight path's dw_k) are a warp
+# tree on the card and torch's einsum in the plain version, float32
+# both, so dq is held at the JAX package's own tolerance for these
+# gradients (tests/test_triplane_nested.py: rtol 5e-5, atol 3e-5 max|g|)
+DQ_RTOL, DQ_ATOL_REL = 5e-5, 3e-5
 GRID_REPLACES = ("sings_tpu/fields/triplane.py:378 (_triplane_nested_bwd, "
                  "XLA, no pallas_call)")
 
 
-class plain_grid_grad:
-    """Route the triplane's grid gradients through the plain version for
-    one comparison (the port itself never does)."""
+class plain_backward:
+    """Route the triplane's backward through the plain version for one
+    comparison (the port itself never does)."""
 
     def __enter__(self):
         from sings_tpu_torch.ops import grid_grad as GG
 
-        self.saved = GG.grid_grad_cuda
-        GG.grid_grad_cuda = GG.grid_grad_plain
+        self.saved = GG.triplane_bwd_cuda
+        GG.triplane_bwd_cuda = GG.triplane_bwd_plain
         return self
 
     def __exit__(self, *exc):
         from sings_tpu_torch.ops import grid_grad as GG
 
-        GG.grid_grad_cuda = self.saved
+        GG.triplane_bwd_cuda = self.saved
 
 
-def step_feature_cotangent(trainer, batches):
+def step_feature_cotangent(trainer, batches) -> tuple:
     """The cotangent that one training step (at TRAIN_STEP0, frame 0)
-    sends into the triplane features: a hook on triplane_features'
-    output in model/avatar.py for one train_step."""
+    sends into the triplane features, by a hook on triplane_features'
+    output in model/avatar.py for one train_step, and that step's peak
+    allocated memory: (cotangent, {"before", "peak"} bytes)."""
     from sings_tpu_torch.losses.regularizers import edge_stat
     from sings_tpu_torch.model import avatar as AV
 
@@ -1527,30 +1540,85 @@ def step_feature_cotangent(trainer, batches):
         return f
 
     AV.triplane_features = hooked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     try:
         tr.train_step(tr.params, tr.buffers, tr.opt_state, tr.cache, batch,
                       torch.Generator(device=tr.device).manual_seed(SEED),
                       TRAIN_STEP0, 0, tr.region_lap, tr.region_lap,
                       tr.lap_pos_w, tr.lap_color_w, edge_stat=es)
+        torch.cuda.synchronize()
     finally:
         AV.triplane_features = orig
+    peak = {"before": before, "peak": torch.cuda.max_memory_allocated()}
     if len(caught) != 1:
         raise AssertionError(f"{len(caught)} feature cotangents in a step")
-    return caught[0]
+    return caught[0], peak
 
 
-def grid_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
-                  smi: str) -> tuple:
-    """Phase 16: the triplane's grid gradient (ops/grid_grad.py, the
-    kernel csrc/grid_grad.cu) at full width on the given field, points
-    and feature cotangent: the kernel against its plain version, twice
-    for its bits; the Function's backward (the kernel) against the same
-    with the plain version, grids and d/dpts; the segment lengths; CUDA-
-    event times of the kernel, the Function's backward, the plain
-    version, index_add_ of the same rows and the parent's autograd of
-    the corner gathers; the bound. Returns (kernels-line row, one
-    forward and backward of the field at these inputs, for the
-    profile)."""
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def check_dq(name: str, got, want) -> float:
+    """dq against the plain version's at DQ_RTOL, DQ_ATOL_REL; returns
+    the largest error over the largest value."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: not finite")
+    tol = DQ_ATOL_REL * float(want.abs().max()) + DQ_RTOL * want.abs()
+    bad = int(((got - want).abs() > tol).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} values off the plain "
+                             "version's beyond the JAX tolerance")
+    return rel_err(got, want)
+
+
+def pass_times(args, profile_dir: str, smi: str) -> dict:
+    """Device time of each of the kernel's launches (torch.profiler)."""
+    from sings_tpu_torch.ops import grid_grad as GG
+
+    os.makedirs(profile_dir, exist_ok=True)
+    _, comp, seen, prof = profiled(lambda: GG.triplane_bwd_cuda(*args))
+    passes = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        found = re.search(r"triplane_bwd_\w+", e.key)
+        name = found.group(0) if found else (
+            "memset" if "memset" in e.key.lower() else None)
+        if name:
+            passes[name] = passes.get(name, 0.0) + \
+                e.self_device_time_total / 1e3
+    total = sum(passes.values())
+    lines = [f"triplane_bwd passes (device ms, torch.profiler, pre "
+             f"{seen} of {PREAMBLE}; {smi})"]
+    lines += [f"  {k:36s} {v:9.4f}  {100 * v / max(total, 1e-30):5.1f}%"
+              for k, v in passes.items()]
+    lines.append(f"  {'total':36s} {total:9.4f}")
+    for line in lines:
+        log(f"[profile grid] {line}")
+    with open(os.path.join(profile_dir, "profile_triplane_bwd.txt"),
+              "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    if not comp["triplane_bwd"] > 0.0:
+        raise AssertionError("profile of triplane_bwd: no device time")
+    return passes
+
+
+def triplane_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
+                      peak: dict, smi: str, profile_dir) -> tuple:
+    """Phase 16: the triplane's backward (ops/grid_grad.py, the kernel
+    csrc/triplane_bwd.cu) at full width on the given field, points and
+    feature cotangent: the kernel against its plain version, twice for
+    its bits; the zero-cotangent rows; the Function's backward (the
+    kernel) against the same with the plain version, grids and d/dpts;
+    the segment lengths; CUDA-event times of the kernel, the sorts, the
+    Function's backward, the plain version and index_add_ of the same
+    rows; the bound; each launch's device time under --profile. Returns
+    (kernels-line row, one forward and backward of the field at these
+    inputs, for the profile)."""
     from sings_tpu_torch.fields import triplane as TT
     from sings_tpu_torch.ops import grid_grad as GG
 
@@ -1560,34 +1628,45 @@ def grid_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
     if not (tcfg.nested and TT._nestable(triplane["grids"], tcfg.multires)):
         raise AssertionError("the recipe's triplane is not nested")
     with torch.no_grad():
-        q = TT.normalize_aabb(xyz, tcfg.bounds)
+        q = TT.normalize_aabb(xyz, tcfg.bounds).contiguous()
+        grids = [g.detach().contiguous() for g in grids]
         _, saved = TT.nested_forward(meta, q, grids)
-        gouts = TT.plane_cotangents(gfeat.contiguous(), saved.samples)
         skeys, orders = GG.sort_keys(saved.keys)
-    args = (skeys, orders, saved.txs.contiguous(), saved.tys.contiguous(),
-            gouts, saved.layout)
-    got = GG.grid_grad_cuda(*args)
-    again = GG.grid_grad_cuda(*args)
-    want = GG.grid_grad_plain(*args)
+    gout = gfeat.contiguous()
+    args = (meta, q, grids, saved, skeys, orders, gout, True)
+    dq_k, got = GG.triplane_bwd_cuda(*args)
+    dq_a, again = GG.triplane_bwd_cuda(*args)
+    dq_p, want = GG.triplane_bwd_plain(*args)
     torch.cuda.synchronize()
     max_err, worst = 0.0, 0.0
     for i, (a, b) in enumerate(zip(got, want)):
-        err = float((a - b).abs().max())
-        scale = max(float(b.abs().max()), 1e-30)
         if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"grid_grad plane {i}: not finite")
-        max_err, worst = max(max_err, err), max(worst, err / scale)
-    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(got, again))
-    n, c = gfeat.shape[0], gouts.shape[2]
+            raise AssertionError(f"triplane_bwd plane {i}: not finite")
+        max_err = max(max_err, float((a - b).abs().max()))
+        worst = max(worst, rel_err(a, b))
+    dq_err = check_dq("triplane_bwd dq", dq_k, dq_p)
+    bits = [(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got + [dq_k], again + [dq_a])]
+    same = all(torch.equal(a, b) for a, b in bits)
+    equal_plain = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, want))
+    zero = (gout == 0).all(dim=1)
+    n, c = gout.shape[0], grids[0].shape[0]
     log(f"[grid bwd] {len(grids)} planes {[tuple(g.shape) for g in grids]}"
         f", {n} queries ({int((xyz.abs().amax(dim=1) == 0).sum())} at xyz "
-        f"= 0), C {c}: kernel vs plain max_abs_err {max_err:.3e}, "
-        f"{worst:.3e} of a plane's largest value; two calls bit for bit "
-        f"equal: {same}")
+        f"= 0, {int(zero.sum())} with a zero cotangent row), C {c}: grids "
+        f"kernel vs plain max_abs_err {max_err:.3e}, {worst:.3e} of a "
+        f"plane's largest value, bit for bit the plain version's: "
+        f"{equal_plain}; dq {dq_err:.3e} of its largest value; two calls "
+        f"bit for bit equal (grids and dq): {same}")
     if worst > GRID_RTOL or not same:
-        raise AssertionError("grid_grad disagrees with its plain version "
+        raise AssertionError("triplane_bwd disagrees with its plain version "
                              "or differs between two calls")
+    # the rows of zero cotangent, whose products the kernel skips: their
+    # dq is exactly 0 in both
+    if bool(zero.any()) and not (bool((dq_k[zero] == 0).all()) and bool(
+            (dq_p[zero] == 0).all())):
+        raise AssertionError("a zero-cotangent row's dq is not 0")
     # per level: occupied cells, the longest and the mean segment
     for lvl in range(len(meta) // 3):
         lens = []
@@ -1614,57 +1693,60 @@ def grid_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
 
     GG.reset_launches()
     d_k = function_bwd()
-    if GG.LAUNCHES["grid_grad"] != 1:
+    if GG.LAUNCHES["triplane_bwd"] != 1:
         raise AssertionError("the Function's backward did not launch "
-                             "grid_grad once")
-    with plain_grid_grad():
+                             "triplane_bwd once")
+    with plain_backward():
         d_p = function_bwd()
-    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            for a, b in zip(d_k, d_p)]
+    pts_err = check_dq("the Function's d/dpts", d_k[0], d_p[0])
+    grid_errs = [rel_err(a, b) for a, b in zip(d_k[1:], d_p[1:])]
     log(f"[grid bwd] Function backward, kernel vs plain (share of the "
-        f"largest value): d/dpts {errs[0]:.3e}, grids {max(errs[1:]):.3e}")
-    if max(errs) > GRID_RTOL:
-        raise AssertionError("the Function's gradients disagree with the "
-                             "plain version's")
+        f"largest value): d/dpts {pts_err:.3e}, grids {max(grid_errs):.3e}")
+    if max(grid_errs) > GRID_RTOL:
+        raise AssertionError("the Function's grid gradients disagree with "
+                             "the plain version's")
 
     # times
-    ms = cuda_ms(lambda: GG.grid_grad_cuda(*args))
+    ms = cuda_ms(lambda: GG.triplane_bwd_cuda(*args))
+    sort_ms = cuda_ms(lambda: GG.sort_keys(saved.keys))
     fn_ms = cuda_ms(function_bwd, n=10)
-    plain_ms = cuda_ms(lambda: GG.grid_grad_plain(*args), n=3, warm=1)
-    rows = GG.cell_rows(*args)
+    plain_ms = cuda_ms(lambda: GG.triplane_bwd_plain(*args), n=3, warm=1)
+    with torch.no_grad():
+        txs, tys, _ = GG.plane_inputs(meta, q, grids, saved.keys,
+                                      saved.layout)
+        gouts = GG.plane_cotangents(gout, saved.samples)
+        rows = GG.cell_rows(skeys, orders, txs, tys, gouts, saved.layout)
     cells = torch.cat([r[0] for r in rows])
     rows = torch.cat([r[1] for r in rows])
     acc = torch.zeros((GG.cell_bases(saved.layout)[-1], 4 * c),
                       device=rows.device)
     lib_ms = cuda_ms(lambda: acc.index_add_(0, cells, rows))
-    del rows, cells, acc
-    # the parent's backward: autograd of the corner gathers (the same
-    # forward outside the Function)
-    old = TT.nested_forward(meta, TT.normalize_aabb(pts, tcfg.bounds),
-                            leaves)[0]
-    old_ms = cuda_ms(lambda: torch.autograd.grad(
-        old, [pts] + leaves, gfeat, retain_graph=True), n=3, warm=1)
-    del old
-    # bytes: the sorted keys (int32) and orders (int64), tx, ty and the
-    # cotangents read once, the gradients written once
-    p_ = len(grids)
-    nbytes = (sum(k.numel() * 12 for k in skeys) + 4 * p_ * n * (2 + c)
-              + 4 * sum(g.numel() for g in grids))
+    del rows, cells, acc, gouts, txs, tys
+    # bytes the function must move: gout, q and the planes read once, the
+    # plane gradients and dq written once
+    nbytes = 4 * (gout.numel() + 2 * q.numel()
+                  + 2 * sum(g.numel() for g in grids))
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"[timing] grid_grad {ms:.4f} ms, the Function's backward "
-        f"{fn_ms:.4f} ms (sort, product rule, coordinate gradient and the "
-        f"kernel), plain {plain_ms:.3f} ms, index_add_ of the same rows "
-        f"{lib_ms:.4f} ms, the parent's autograd of the gathers "
-        f"{old_ms:.3f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes), "
-        f"{launches} launches in 16 steps | {smi}")
+    passes = pass_times(args, profile_dir, smi) if profile_dir else None
+    mib = 1 << 20
+    log(f"[timing] triplane_bwd {ms:.4f} ms ({GG.KERNEL_LAUNCHES} "
+        f"launches after the sorts, {sort_ms:.4f} ms), the Function's "
+        f"backward {fn_ms:.4f} ms (sorts and kernel), plain {plain_ms:.3f} "
+        f"ms, index_add_ of the same rows {lib_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({nbytes} bytes), {100 * bound_ms / ms:.1f}% "
+        f"of it; {launches} launches in 16 steps; one training step's "
+        f"peak allocated {peak['peak'] / mib:.1f} MiB "
+        f"({(peak['peak'] - peak['before']) / mib:.1f} above the "
+        f"{peak['before'] / mib:.1f} MiB held before it) | {smi}")
     row = {
-        "name": "grid_grad", "route": "cuda",
-        "source": "sings_tpu_torch/csrc/grid_grad.cu",
+        "name": "triplane_bwd", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/triplane_bwd.cu",
         "replaces": GRID_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
-        "function_bwd_ms": fn_ms, "old_autograd_ms": old_ms,
+        "max_abs_err": max_err, "dq_max_rel_err": dq_err, "ms": ms,
+        "kernel_ms": ms, "sort_ms": sort_ms, "function_bwd_ms": fn_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "step_peak_bytes": peak["peak"],
+        "step_start_bytes": peak["before"], "pass_ms": passes,
     }
 
     def field_step():
@@ -1700,7 +1782,7 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     old._init_attrs()
     torch.cuda.synchronize()
     t_fit = time.time() - t0
-    fit_launches = GG.LAUNCHES["grid_grad"]
+    fit_launches = GG.LAUNCHES["triplane_bwd"]
     k = len(batches["idx"])
     (old.params, old.buffers, old.opt_state, losses, skipped,
      _) = old.train_scan(old.params, old.buffers, old.opt_state, old.cache,
@@ -1710,13 +1792,14 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     log(f"[entry] pre-fit {RECIPE_INIT_STEPS} steps in {t_fit:.1f}s, then "
         f"steps {CKPT_STEP - k}-{CKPT_STEP - 1}: losses "
         f"{[round(x, 4) for x in losses.tolist()]}, skipped "
-        f"{int(skipped.sum())}; grid_grad launches: {fit_launches} in the "
-        f"pre-fit, {GG.LAUNCHES['grid_grad'] - fit_launches} in the chunk")
+        f"{int(skipped.sum())}; triplane_bwd launches: {fit_launches} in "
+        f"the pre-fit, {GG.LAUNCHES['triplane_bwd'] - fit_launches} in the "
+        "chunk")
     # the pre-fit trains the grids (not xyz) and each step the grids and
     # xyz: one triplane backward each
-    if (fit_launches, GG.LAUNCHES["grid_grad"]) != (RECIPE_INIT_STEPS,
+    if (fit_launches, GG.LAUNCHES["triplane_bwd"]) != (RECIPE_INIT_STEPS,
                                                     RECIPE_INIT_STEPS + k):
-        raise AssertionError("grid_grad launches differ from one per "
+        raise AssertionError("triplane_bwd launches differ from one per "
                              "pre-fit step and training step")
     old.step = CKPT_STEP
     ck_path = old.save_ckpt(f"{CKPT_STEP:06d}")
@@ -1900,10 +1983,10 @@ def run_entry(work: str, dev, old, batches, smi: str) -> list:
     # the triplane's backward: once a training step; the resumed Trainer
     # runs no pre-fit, and validation's pose refine, the density events
     # and the exports take no gradient of the field
-    log(f"[entry] grid_grad launches in the whole CLI call "
-        f"{GG.LAUNCHES['grid_grad']}, expected {n_steps} (one a step)")
-    if GG.LAUNCHES["grid_grad"] != n_steps:
-        raise AssertionError("grid_grad launches differ from one a step")
+    log(f"[entry] triplane_bwd launches in the whole CLI call "
+        f"{GG.LAUNCHES['triplane_bwd']}, expected {n_steps} (one a step)")
+    if GG.LAUNCHES["triplane_bwd"] != n_steps:
+        raise AssertionError("triplane_bwd launches differ from one a step")
     # only the forwards that a backward follows write the window-entry
     # state: the steps and the refine steps, not the validation's
     # renders under no_grad nor the exports
@@ -2157,13 +2240,14 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
     # the composite kernels each stage launches
     needs = {"rasterize forward": ["composite_fwd"],
              "composite_bwd kernel": ["composite_bwd"],
-             "triplane forward+backward": ["grid_grad"],
+             "triplane forward+backward": ["triplane_bwd"],
              "whole train_step": ["composite_fwd", "composite_bwd",
-                                  "grid_grad"]}
+                                  "triplane_bwd"]}
     lines = [f"{'stage':40s} {'events ms':>10s} {'kernels ms':>10s} "
-             f"{'composite':>10s} {'grid_grad':>10s} {'pre':>4s}  (events: "
+             f"{'composite':>10s} {'triplane':>10s} {'pre':>4s}  (events: "
              "5 back-to-back calls, host issue included; kernels: device "
-             "time, profiler; composite, grid_grad: those kernels' share; "
+             "time, profiler; composite, triplane: the composite kernels' "
+             "and triplane_bwd's share; "
              f"pre: of the {PREAMBLE} preamble kernels, those the profiler "
              "recorded)"]
     for name, fn in stages:
@@ -2181,7 +2265,7 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
                                      f"{[e.key for e in scatter]}")
         lines.append(f"{name:40s} {t:10.4f} {d:10.4f} "
                      f"{composite_ms(comp):10.4f} "
-                     f"{comp['grid_grad']:10.4f} {seen:4d}")
+                     f"{comp['triplane_bwd']:10.4f} {seen:4d}")
 
     def chunk():
         out = tr.train_scan(tr.params, tr.buffers, tr.opt_state, tr.cache,
@@ -2196,7 +2280,7 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
     wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, comp, _, prof = profiled(chunk)
     require_seen("8-step chunk", comp, ["composite_fwd", "composite_bwd",
-                                        "grid_grad"], prof, out_dir)
+                                        "triplane_bwd"], prof, out_dir)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -2205,7 +2289,7 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
     lines.append(f"8-step chunk: wall {wall_ms:.3f} ms unprofiled (host "
                  f"clock), device kernels {busy_ms:.3f} ms (busy "
                  f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled wall), "
-                 f"grid_grad {comp['grid_grad']:.3f} ms; "
+                 f"triplane_bwd {comp['triplane_bwd']:.3f} ms; "
                  f"indexing_backward_kernel (none from the triplane: its "
                  f"stage above runs none) "
                  f"{sum(e.self_device_time_total for e in scatter) / 1e3:.3f}"

@@ -21,10 +21,11 @@ the JAX package's custom backward:
     _triplane_fused), one combined key plane base + cell and one
     reduction over all planes ("cells" group).
   * fused=False: one grid_sample_2d per plane (its own _SampleGrid).
-The product rule over each scale's Hadamard product and the coordinate
-gradients (ops/sampling.py::_coord_grad) are plain tensor ops, as JAX
-leaves them to XLA; the grid gradients are ops/grid_grad.py's kernel on
-the card.
+The fused and nested backwards are ops/grid_grad.py::triplane_backward
+(the product rule over each scale's Hadamard product, the coordinate
+and the grid gradients in one CUDA kernel on the card, its plain
+version on the CPU). Their forwards keep q, the planes, the per-plane
+samples (N, C) and the sort keys: no (N, 4, C) corner rows.
 """
 from __future__ import annotations
 
@@ -34,10 +35,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..ops import grid_grad as GG
-from ..ops.sampling import (
-    _combine, _coord_grad, _corner_coords, _corner_table, _sample_main,
-    _weights, grid_sample_2d,
-)
+from ..ops.bilinear import _combine, _corner_coords, _corner_table, _weights
+from ..ops.sampling import _sample_main, grid_sample_2d
 
 
 class TriplaneConfig(NamedTuple):
@@ -108,45 +107,28 @@ def _fused_out(samples: list) -> torch.Tensor:
                       for s in range(len(samples) // 3)], dim=-1)
 
 
-class Saved(NamedTuple):
-    """What a fused or nested forward keeps for its backward: tx, ty
-    (P, N), the per-plane samples (N, C) and corner rows (N, 4, C), each
-    sort group's keys and the grid-gradient layout."""
-    txs: torch.Tensor
-    tys: torch.Tensor
-    samples: list
-    corners: list
-    keys: list
-    layout: GG.Layout
-
-
 def fused_forward(meta: tuple, q: torch.Tensor, grids) -> tuple:
     """Every plane sampled on its own (JAX's _fused_samples); one
-    combined key, plane base + cell. Returns (features, Saved)."""
-    samples, corners, cells, txs, tys = [], [], [], [], []
+    combined key, plane base + cell. Returns (features, GG.Saved)."""
+    samples, cells = [], []
     base = 0
     for plane, (a, b, h, w) in zip(grids, meta):
-        out, v, cell, tx, ty = _sample_main(plane, q[:, (a, b)])
+        out, _v, cell, _tx, _ty = _sample_main(plane, q[:, (a, b)])
         samples.append(out)
-        corners.append(v)
         cells.append(cell + base)
-        txs.append(tx)
-        tys.append(ty)
         base += (h - 1) * (w - 1)
     layout = GG.Layout(planes=tuple((h, w) for (_a, _b, h, w) in meta),
                        groups=(GG.Group("cells", tuple(range(len(meta)))),))
-    return _fused_out(samples), Saved(
-        torch.stack(txs), torch.stack(tys), samples, corners,
-        [torch.cat(cells).to(torch.int32)], layout)
+    return _fused_out(samples), GG.Saved(
+        samples, [torch.cat(cells).to(torch.int32)], layout)
 
 
 def nested_forward(meta: tuple, q: torch.Tensor, grids) -> tuple:
     """Power-of-two cell towers: each orientation located once at the
     finest level, level l's cell the fine cell shifted; one Morton key
-    per orientation. Returns (features, Saved)."""
+    per orientation. Returns (features, GG.Saved)."""
     s_scales = len(meta) // 3
-    samples, corners = [None] * len(meta), [None] * len(meta)
-    txs, tys = [None] * len(meta), [None] * len(meta)
+    samples = [None] * len(meta)
     keys, groups = [], []
     for o in range(3):
         a, b, hf, wf = meta[(s_scales - 1) * 3 + o]
@@ -162,43 +144,13 @@ def nested_forward(meta: tuple, q: torch.Tensor, grids) -> tuple:
             v = _corner_table(plane)[cell].reshape(-1, 4, c)
             _, _, tx, ty = _corner_coords(coords, h, w)
             samples[i] = _combine(v, _weights(tx, ty))
-            corners[i], txs[i], tys[i] = v, tx, ty
             shifts.append(shift)
         keys.append(GG.morton_codes(x0f, y0f))
         groups.append(GG.Group("morton", tuple(
             l * 3 + o for l in range(s_scales)), tuple(shifts)))
     layout = GG.Layout(planes=tuple((h, w) for (_a, _b, h, w) in meta),
                        groups=tuple(groups))
-    return _fused_out(samples), Saved(torch.stack(txs), torch.stack(tys),
-                                      samples, corners, keys, layout)
-
-
-def plane_cotangents(gout: torch.Tensor, samples: list) -> torch.Tensor:
-    """(P, N, C) cotangents of the per-plane samples: the product rule
-    over each scale's Hadamard product, in JAX's order."""
-    n_planes = len(samples)
-    n, c = samples[0].shape
-    gouts = torch.empty((n_planes, n, c), dtype=gout.dtype,
-                        device=gout.device)
-    for s in range(n_planes // 3):
-        g_s = gout[:, s * c:(s + 1) * c]
-        v0, v1, v2 = samples[3 * s], samples[3 * s + 1], samples[3 * s + 2]
-        torch.mul(g_s * v1, v2, out=gouts[3 * s])
-        torch.mul(g_s * v0, v2, out=gouts[3 * s + 1])
-        torch.mul(g_s * v0, v1, out=gouts[3 * s + 2])
-    return gouts
-
-
-def coord_grads(meta: tuple, q: torch.Tensor, saved: Saved,
-                gouts: torch.Tensor) -> torch.Tensor:
-    """(N, 3) d q, each plane's weight path added in plane order."""
-    dq = torch.zeros_like(q)
-    for i, (a, b, h, w) in enumerate(meta):
-        d = _coord_grad(q[:, (a, b)], h, w, saved.txs[i], saved.tys[i],
-                        saved.corners[i], gouts[i])
-        dq[:, a] += d[:, 0]
-        dq[:, b] += d[:, 1]
-    return dq
+    return _fused_out(samples), GG.Saved(samples, keys, layout)
 
 
 class _Triplane(torch.autograd.Function):
@@ -210,24 +162,19 @@ class _Triplane(torch.autograd.Function):
     def forward(cls, ctx, meta, q, *grids):
         out, saved = cls.run_forward(meta, q, grids)
         ctx.meta, ctx.layout = meta, saved.layout
-        ctx.save_for_backward(q, saved.txs, saved.tys, *saved.samples,
-                              *saved.corners, *saved.keys)
+        ctx.save_for_backward(q, *grids, *saved.samples, *saved.keys)
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        q, txs, tys, *rest = ctx.saved_tensors
+        q, *rest = ctx.saved_tensors
         p = len(ctx.meta)
-        saved = Saved(txs, tys, rest[:p], rest[p:2 * p], list(rest[2 * p:]),
-                      ctx.layout)
-        gouts = plane_cotangents(gout.contiguous(), saved.samples)
-        dq = coord_grads(ctx.meta, q, saved, gouts) \
-            if ctx.needs_input_grad[1] else None
-        dgrids = [None] * p
-        if any(ctx.needs_input_grad[2:]):
-            dgrids = GG.segment_grads(saved.keys, txs, tys, gouts,
-                                      ctx.layout)
-        return (None, dq, *dgrids)
+        saved = GG.Saved(rest[p:2 * p], rest[2 * p:], ctx.layout)
+        dq, dgrids = GG.triplane_backward(ctx.meta, q, rest[:p], saved,
+                                          gout)
+        needs = ctx.needs_input_grad
+        return (None, dq if needs[1] else None,
+                *(g if need else None for g, need in zip(dgrids, needs[2:])))
 
 
 class _TriplaneFused(_Triplane):

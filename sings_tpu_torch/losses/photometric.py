@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.clip import clip
 from ..ops.ssim import ssim
 
 
@@ -138,11 +139,11 @@ def photometric_loss(draws: dict, pred: torch.Tensor, gt_rgb: torch.Tensor,
                             weights.patch_size)
         if use_lpips:
             losses["lpips_patch"] = weights.lpips * lpips_fn(
-                pred_p.clamp(max=1.0), gt_p).mean()
+                clip(pred_p, hi=1.0), gt_p).mean()
             total = total + losses["lpips_patch"]
         if weights.grad_pyramid > 0:
             losses["grad_pyr"] = weights.grad_pyramid * \
-                grad_pyramid_distance(pred_p.clamp(max=1.0), gt_p,
+                grad_pyramid_distance(clip(pred_p, hi=1.0), gt_p,
                                       weights.grad_pyramid_levels)
             total = total + losses["grad_pyr"]
     return total, losses

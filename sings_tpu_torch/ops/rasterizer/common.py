@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..clip import clip
 from ..graphics import Camera
 from ..rotations import quaternion_to_matrix
 from ..sh import sh_to_rgb
@@ -47,8 +48,8 @@ def project_cov3d_to_2d(cov3d: torch.Tensor, p_view: torch.Tensor,
                   else camera.clamp_tan_fovx)
     limy = 1.3 * (camera.tan_fovy if camera.clamp_tan_fovy is None
                   else camera.clamp_tan_fovy)
-    txtz = torch.clamp(p_view[:, 0] / z, -limx, limx)
-    tytz = torch.clamp(p_view[:, 1] / z, -limy, limy)
+    txtz = clip(p_view[:, 0] / z, -limx, limx)
+    tytz = clip(p_view[:, 1] / z, -limy, limy)
     tx = txtz * z
     ty = tytz * z
     j00 = focal_x / z

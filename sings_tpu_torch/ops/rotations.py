@@ -9,9 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from .clip import clip
+
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+    """|x| floored at 1e-12 with jnp.clip's gradient (half at the floor:
+    the radial cotangent of x / |x| moves there)."""
+    return clip(torch.linalg.norm(x, dim=-1, keepdim=True), lo=1e-12)
 
 
 def _safe_sqrt(x, eps=1e-18):

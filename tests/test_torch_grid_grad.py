@@ -1,9 +1,11 @@
-"""The port's sampling and triplane gradients held against jax.grad of
-the JAX package's functions (its custom backwards) on the same numpy
+"""The port's sampling and triplane gradients held against the JAX
+package's custom backwards (_triplane_nested_bwd, _triplane_fused_bwd,
+_sample_bwd, called directly and through jax.grad) on the same numpy
 inputs, at the tolerance of tests/test_triplane_nested.py: rtol 5e-5,
-atol 3e-5 * max|g|. On the CPU the grid gradients run
-ops/grid_grad.py's plain version (the CUDA kernel's arithmetic); the
-plain segmented reduction is also held against a dense numpy sum."""
+atol 3e-5 * max|g|. On the CPU the backward runs ops/grid_grad.py's
+plain version (the CUDA kernel's arithmetic, triplane_bwd_plain); the
+plain segmented reduction is also held against a dense numpy sum, and
+the forwards' saved sets hold no corner rows."""
 import functools
 
 import jax
@@ -15,6 +17,7 @@ import torch
 from sings_tpu.fields import triplane as jtri
 from sings_tpu.ops import sampling as jsmp
 from sings_tpu_torch.fields import triplane as ttri
+from sings_tpu_torch.ops import clip as tclip
 from sings_tpu_torch.ops import grid_grad as GG
 from sings_tpu_torch.ops import sampling as tsmp
 
@@ -146,7 +149,7 @@ def test_clip_tie_gradient_at_bounds(nested, fused):
                       (-1.0, 0.0, 3.0), (1.0, 0.0, 3.0), (4.0, 0.0, 3.0)]:
         want = float(jax.grad(lambda v: jnp.clip(v, lo, hi))(x))
         t = torch.tensor(x, requires_grad=True)
-        tsmp._Clip.apply(t, lo, hi).backward()
+        tclip.clip(t, lo, hi).backward()
         assert float(t.grad) == want, (x, lo, hi)
     multires = (1, 2) if not fused else (1, 2, 4)
     got, want, gp, wp = _triplane_grads(
@@ -217,9 +220,7 @@ def test_plain_reduction_against_dense_sum():
     ty = torch.tensor(rng.rand(5, n).astype(np.float32))
     gout = torch.tensor(rng.randn(5, n, c).astype(np.float32))
     skeys, orders = GG.sort_keys(keys)
-    before = GG.LAUNCHES["grid_grad"]
-    got = GG.grid_grad(skeys, orders, tx, ty, gout, layout)
-    assert GG.LAUNCHES["grid_grad"] == before    # CPU: the plain version
+    got = GG.grid_grad_plain(skeys, orders, tx, ty, gout, layout)
     want = _dense_grads(skeys, orders, tx, ty, gout, layout)
     for p, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape and a.dtype == torch.float32
@@ -232,9 +233,6 @@ def test_plain_reduction_against_dense_sum():
         j = orders[1]
         assert torch.equal(GG._decode(seg, 1, cx),
                            (y0[j] >> s) * cx + (x0[j] >> s))
-    # the CUDA wrapper refuses CPU tensors
-    with pytest.raises(ValueError, match="CUDA"):
-        GG.grid_grad_cuda(skeys, orders, tx, ty, gout, layout)
 
 
 def _graph_nodes(t):
@@ -270,3 +268,168 @@ def test_no_autograd_scatter_of_the_corner_gathers(nested, fused, node):
     gathered = [tuple(n._saved_self_sym_sizes) for n in nodes
                 if "Index" in n.name()]
     assert all(size == tuple(pts.shape) for size in gathered), gathered
+
+
+# ---------------------------------------------------------------------------
+# triplane_backward against JAX's custom backwards, called directly
+
+def _backward_case(points, n=N_PTS, seed=7):
+    """Normalized query points and a cotangent whose dead rows (the
+    avatar's slots at xyz = 0) are exactly zero."""
+    rng = np.random.RandomState(seed)
+    if points == "edge":
+        q = _points(n, seed)
+    elif points == "bounds":
+        q = _bound_points(n)
+    else:                               # "dead": a fifth at 0, zero rows
+        q = _points(n, seed)
+        q[::5] = 0.0
+    return q, rng
+
+
+@pytest.mark.parametrize("points", ["edge", "bounds", "dead"])
+@pytest.mark.parametrize("kind", ["nested", "fused"])
+def test_triplane_backward_against_jax_bwd(kind, points):
+    """GG.triplane_backward (plain, the CPU) against _triplane_nested_bwd
+    / _triplane_fused_bwd on the same residuals and cotangent: every
+    plane's gradient and dq."""
+    cfg_j = jtri.TriplaneConfig(**_cfg(kind == "nested"))
+    params = jtri.init_triplane(jax.random.PRNGKey(3), cfg_j)
+    q, rng = _backward_case(points)
+    flat = [np.asarray(p) for s in params["grids"] for p in s]
+    meta = tuple((a, b, p.shape[1], p.shape[2]) for s in params["grids"]
+                 for p, (a, b) in zip(s, jtri.COO_COMBS))
+    gout = rng.randn(len(q), cfg_j.feat_dim).astype(np.float32)
+    if points == "dead":
+        gout[::5] = 0.0
+    fwd, bwd = ((jtri._triplane_nested_fwd, jtri._triplane_nested_bwd)
+                if kind == "nested" else
+                (jtri._triplane_fused_fwd, jtri._triplane_fused_bwd))
+    _, res = fwd(meta, tuple(jnp.asarray(p) for p in flat), jnp.asarray(q))
+    want_grids, want_dq = bwd(meta, res, jnp.asarray(gout))
+    forward = ttri.nested_forward if kind == "nested" else ttri.fused_forward
+    tgrids = [torch.tensor(p) for p in flat]
+    _, saved = forward(meta, torch.tensor(q), tgrids)
+    dq, dgrids = GG.triplane_backward(meta, torch.tensor(q), tgrids, saved,
+                                      torch.tensor(gout))
+    for i, (a, b) in enumerate(zip(dgrids, want_grids)):
+        _close(a.numpy(), b, f"plane {i}")
+    _close(dq.numpy(), want_dq, "dq")
+    if points == "dead":
+        assert not dq[::5].any()
+
+
+@pytest.mark.parametrize("points", ["edge", "bounds", "dead"])
+def test_sample_backward_against_jax_bwd(points):
+    """One plane without the product rule (grid_sample_2d's backward)
+    against _sample_bwd."""
+    rng = np.random.RandomState(8)
+    grid = rng.rand(5, 9, 13).astype(np.float32)
+    q, _ = _backward_case(points)
+    coords = np.ascontiguousarray(q[:, :2])
+    gout = rng.randn(len(coords), 5).astype(np.float32)
+    if points == "dead":
+        gout[::5] = 0.0
+    _, res = jsmp._sample_fwd(jnp.asarray(grid), jnp.asarray(coords))
+    want_grid, want_dc = jsmp._sample_bwd(res, jnp.asarray(gout))
+    tc = torch.tensor(coords)
+    _, _, cell, _, _ = tsmp._sample_main(torch.tensor(grid), tc)
+    layout = GG.Layout(planes=((9, 13),), groups=(GG.Group("cells", (0,)),))
+    dc, (dg,) = GG.triplane_backward(
+        ((0, 1, 9, 13),), tc, [torch.tensor(grid)],
+        GG.Saved([], [cell.to(torch.int32)], layout), torch.tensor(gout),
+        product=False)
+    _close(dg.numpy(), want_grid, "grid")
+    _close(dc.numpy(), want_dc, "coords")
+
+
+@pytest.mark.parametrize("nested,fused", [(True, True), (False, True),
+                                          (True, False)])
+def test_dead_rows_zero_cotangent(nested, fused):
+    """Through triplane_features: a fifth of the points at xyz = 0 whose
+    features get an exactly zero cotangent (the avatar's dead slots),
+    against jax.grad of the same masked loss."""
+    cfg_kw = _cfg(nested)
+    cfg_j = jtri.TriplaneConfig(**cfg_kw)
+    cfg_t = ttri.TriplaneConfig(**cfg_kw)
+    pts = _points(N_PTS, 9)
+    pts[::5] = 0.0
+    live = np.ones((N_PTS, 1), np.float32)
+    live[::5] = 0.0
+    params = jtri.init_triplane(jax.random.PRNGKey(4), cfg_j)
+
+    def loss_j(p, x):
+        return _loss_j(jtri.triplane_features(p, x, cfg_j, fused=fused)
+                       * live)
+
+    g_params, g_pts = jax.grad(loss_j, argnums=(0, 1))(params,
+                                                       jnp.asarray(pts))
+    tp = jax.tree.map(lambda x: torch.tensor(np.array(x),
+                                             requires_grad=True), params)
+    tpts = torch.tensor(pts, requires_grad=True)
+    _loss_t(ttri.triplane_features(tp, tpts, cfg_t, fused=fused)
+            * torch.tensor(live)).backward()
+    for a, b in zip([p.grad for s in tp["grids"] for p in s],
+                    [p for s in g_params["grids"] for p in s]):
+        _close(a.numpy(), b)
+    _close(tpts.grad.numpy(), g_pts, "pts")
+    assert not tpts.grad[::5].any()
+
+
+@pytest.mark.parametrize("nested,fused", [(True, True), (False, True),
+                                          (True, False)])
+def test_forward_saves_no_corner_rows(nested, fused):
+    """What the field's Functions keep for the backward (the same set on
+    the card and on the CPU): q or the coordinates, the planes, the
+    (N, C) samples and the int32 keys, never (N, 4, C) corner rows or
+    per-plane weights."""
+    cfg = ttri.TriplaneConfig(**_cfg(nested))
+    field = ttri.init_triplane(torch.Generator().manual_seed(0), cfg)
+    planes = [p.requires_grad_(True) for s in field["grids"] for p in s]
+    n = 60
+    pts = torch.tensor(_points(n, 3), requires_grad=True)
+    feats = ttri.triplane_features(field, pts, cfg, fused=fused)
+    saved = [t for node in _graph_nodes(feats)
+             if node.name() in ("_TriplaneNestedBackward",
+                                "_TriplaneFusedBackward",
+                                "_SampleGridBackward")
+             for t in node.saved_tensors]
+    assert saved
+    c = cfg.out_dim
+    plane_shapes = {tuple(p.shape) for p in planes}
+    for t in saved:
+        shape = tuple(t.shape)
+        assert shape != (n, 4, c) and t.dim() <= 3, shape
+        assert (shape in plane_shapes or shape in ((n, 3), (n, 2), (n, c))
+                or (t.dtype == torch.int32 and t.dim() == 1)), shape
+
+
+def test_kernel_tables_and_refusals():
+    """The kernel's problem and plane tables (built once per layout) and
+    the wrapper's refusals, on the CPU."""
+    cfg = ttri.TriplaneConfig(**_cfg(True, res=4))
+    field = ttri.init_triplane(torch.Generator().manual_seed(1), cfg)
+    grids = [p for s in field["grids"] for p in s]
+    meta = tuple((a, b, p.shape[1], p.shape[2]) for s in field["grids"]
+                 for p, (a, b) in zip(s, ttri.COO_COMBS))
+    n = 600
+    q = torch.tensor(_points(n, 4))
+    _, saved = ttri.nested_forward(meta, q, grids)
+    st = GG._static(meta, saved.layout, n, cfg.out_dim, True)
+    assert st is GG._static(meta, saved.layout, n, cfg.out_dim, True)
+    blocks = -(-n // GG.BLOCK_ROWS)
+    assert st.n_blocks == 9 * blocks
+    assert list(st.prob_tab[:, 7]) == [blocks * i for i in range(9)]
+    for p in range(9):
+        s = p // 3
+        h, w, a, b, base, gcol, f1, f2 = st.plane_tab[p, :8]
+        assert (a, b, h, w) == meta[p]
+        assert base == GG.cell_bases(saved.layout)[p]
+        assert gcol == s * cfg.out_dim
+        assert sorted((f1, f2, p)) == [3 * s, 3 * s + 1, 3 * s + 2]
+    assert st.out_floats == sum(g.numel() for g in grids)
+    gout = torch.zeros((n, cfg.feat_dim))
+    skeys, orders = GG.sort_keys(saved.keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        GG.triplane_bwd_cuda(meta, q, grids, saved, skeys, orders, gout,
+                             True)

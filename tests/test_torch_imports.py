@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.preprocess.frames",
                  "sings_tpu_torch.preprocess.masks",
                  "sings_tpu_torch.cli.refine",
-                 "sings_tpu_torch.ops.grid_grad"):
+                 "sings_tpu_torch.ops.grid_grad",
+                 "sings_tpu_torch.ops.bilinear",
+                 "sings_tpu_torch.ops.clip"):
         assert importlib.util.find_spec(name) is not None, name
 
 
