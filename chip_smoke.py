@@ -145,6 +145,24 @@ exp_bwd_variants} at their own sizes. Phases:
                 rows; its bound in bytes; the peak allocated memory of
                 one training step (phase 7's step at frame 0); under
                 --profile each of the kernel's launches' device time
+ 17 options    the training options (phase 7's full-width setup, kit and
+                pre-fit with the JAX defaults' tpu.random_lpips_factor
+                0.05, tpu.knn_backend window and laplacian.type
+                cotangent): 2 train_scan calls (16 steps from step 2000),
+                composite_fwd, composite_bwd and triplane_bwd launches
+                counted from 0 (16 each), every step finite with an LPIPS
+                term > 0; on the card against the CPU: the LPIPS term and
+                its d/dpatches at the step's patches, the cotangent
+                laplacian's loss and gradient, knn_window_stat on the
+                canonical cloud, and against the exact dense statistic
+                (never under it); the banded laplacian rebuilt
+                (type standard) against the gather one; CUDA-event times
+                of the LPIPS term, the three laplacians and both KNN
+                statistics, the tables' host build times;
+                rasterize_multi of two avatars bit for bit one rasterize
+                of their concatenation in one composite_fwd launch; one
+                chunk under ops/profiling.trace with annotate ranges,
+                each in the exported trace, and its kernels' device time
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -857,6 +875,8 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
     # ---- 15 the synthetic-template calibration
     run_calibrate(work, dev, smi, kernels, profile_dir)
+    # ---- 17 the training options of the JAX defaults
+    run_options(work, dev, smi, profile_dir)
     for row in kernels:
         if row["name"] in KERNEL_ERRS:
             row["max_abs_err"] = KERNEL_ERRS[row["name"]]
@@ -2279,6 +2299,7 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
     chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, comp, _, prof = profiled(chunk)
+    CHUNK_DEVICE_MS["phase 9 (knn chunk, standard laplacian)"] = busy_ms
     require_seen("8-step chunk", comp, ["composite_fwd", "composite_bwd",
                                         "triplane_bwd"], prof, out_dir)
     kernels = [e for e in prof.key_averages()
@@ -2301,6 +2322,326 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
         log(f"[profile train] {line}")
     with open(os.path.join(out_dir, "profile_train.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# the training options (phase 17)
+
+# the device time of an 8-step chunk (ms) by phase: phase 9's under
+# --profile (profile_train), phase 17's from its trace
+CHUNK_DEVICE_MS = {}
+# the JAX package's DEFAULTS (sings_tpu/config/defaults.py) where the
+# recipe differs: the random-feature LPIPS term, and the opt-in windowed
+# statistic and cotangent laplacian
+OPTIONS_DOTLIST = ["tpu.random_lpips_factor=0.05", "tpu.knn_backend=window",
+                   "human.loss.laplacian.type=cotangent",
+                   "exp_name=smoke_options"]
+# card against CPU: the LPIPS term (cuDNN's and the CPU's float32
+# convolutions sum in other orders) at rtol 1e-4. Its gradient is
+# ill-conditioned in float32 at the step's 128^2 patches (13 convolutions,
+# unit-normalised features, max-pool windows over clipped flat areas):
+# two CPU convolution algorithms (oneDNN's and the native one) give
+# input gradients 1.8% of the largest element apart on such patches. So
+# d/dpatches is held against the CPU's float64 gradient of the same
+# function: the card's relative L2 error within LPIPS_GRAD_FACTOR times
+# the CPU float32 gradient's own. The laplacians (card against CPU,
+# banded against gather) at the JAX package's tests/test_banded_laplacian.py
+# tolerances: loss rtol 1e-5, gradient rtol 1e-4 and atol 1e-6. The atol
+# is absolute there and here: L x cancels at the inputs' scale (metres,
+# |x| ~ 1), so where the laplacian gradient is ~1e-3 its rounding is not
+# a share of that (a CPU rehearsal found one of 2,304 anchor gradients
+# 3.5e-9 off, above 1e-6 of the largest, 1.0e-3)
+LPIPS_RTOL, LPIPS_GRAD_FACTOR = 1e-4, 4.0
+LAP_RTOL, LAP_GRAD_RTOL, LAP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+# knn_window_stat, card against CPU: the same windows (the codes are
+# exact); a squared distance cancels |a|^2 + |b|^2 - 2 a.b in float32,
+# eps |p|^2 ~ 1.2e-7 m^2 at the avatar's metre scale, ~3e-5 m at a 2 mm
+# neighbour, so within 1e-3 of the largest statistic
+KNN_ATOL_REL = 1e-3
+MULTI_OFFSET = (0.35, 0.0, 0.0)
+
+
+def close_rel(name: str, got, want, rtol: float, atol_rel: float = 0.0,
+              atol: float = 0.0) -> float:
+    """max |got - want| / max |want|; raises where |got - want| exceeds
+    atol + atol_rel max |want| + rtol |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    bad = (got - want).abs() > atol + atol_rel * scale + rtol * want.abs()
+    log(f"[options] {name}: max abs err {err:.3e} of max {scale:.3e}, "
+        f"{int(bad.sum())} of {want.numel()} beyond rtol {rtol:g}, atol "
+        f"{atol:g} + {atol_rel:g} of the max")
+    if bad.any() or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: card and CPU disagree")
+    return err / max(scale, 1e-30)
+
+
+def lap_terms(out, trainer, dev):
+    """The training step's fused laplacian terms at out's values, as new
+    leaves on dev (anchor positions, hands, SH dc colour)."""
+    leaves = [out[k].detach().to(dev).requires_grad_(True)
+              for k in ("xyz_anchor_canon", "xyz_canon")]
+    leaves.append(out["shs"][:, 0].detach().to(dev).requires_grad_(True))
+    pw = trainer.lap_pos_w.to(dev)
+    terms = [(leaves[0], pw, None), (leaves[1], torch.ones_like(pw), [6, 7]),
+             (leaves[2], trainer.lap_color_w.to(dev), None)]
+    return leaves, terms
+
+
+def lap_value_grads(lap, out, trainer, dev):
+    leaves, terms = lap_terms(out, trainer, dev)
+    total = sum(lap.loss_fused(terms))
+    return total, torch.autograd.grad(total, leaves)
+
+
+def to_cpu(tup):
+    return type(tup)(*[x.cpu() for x in tup])
+
+
+def run_options(work: str, dev, smi: str, profile_dir: str | None) -> None:
+    from sings_tpu_torch.config.core import load_config
+    from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.losses import regularizers as R
+    from sings_tpu_torch.losses.lpips import LPIPSParams, lpips_distance
+    from sings_tpu_torch.losses.photometric import (
+        crop_patches, draw_step_randoms,
+    )
+    from sings_tpu_torch.model.avatar import avatar_forward, get_canon_xyz
+    from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops import profiling
+    from sings_tpu_torch.ops.clip import clip
+    from sings_tpu_torch.ops.knn import knn_window_stat
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer.api import rasterize
+    from sings_tpu_torch.ops.rasterizer.multi import rasterize_multi
+    from sings_tpu_torch.train.trainer import Trainer
+
+    # ---- 17 setup: phase 7's, with the options
+    t0 = time.time()
+    cfg = load_config(DEFAULTS, None, train_dotlist(work, OPTIONS_DOTLIST))
+    tr = Trainer(cfg, mode="train", device=dev, kit=make_train_kit(),
+                 image_writer=lambda path, img: None)
+    seed_train_targets(tr)
+    batches = train_batches(tr)
+    k = tr.inner_steps
+    w = tr.step_cfg.weights.photometric
+    log(f"[options setup] knn {tr.step_cfg.knn_backend}, laplacian "
+        f"{type(tr.region_lap).__name__} rows "
+        f"{tuple(tr.region_lap.neighbors.shape)}, lpips weight {w.lpips}, "
+        f"patches {w.num_patches} x {w.patch_size}^2 "
+        f"({time.time() - t0:.1f}s)")
+    if (tr.step_cfg.knn_backend != "window" or w.lpips != 0.05
+            or not isinstance(tr.region_lap, R.CotRegionLaplacian)):
+        raise AssertionError("phase 17 options not in effect")
+
+    # ---- 17.1 training: 16 steps, launches from 0
+    state = (tr.params, tr.buffers, tr.opt_state)
+    K.reset_launches()
+    GG.reset_launches()
+    torch.cuda.synchronize()
+    times, all_losses, lp = [], [], []
+    for c in range(2):
+        t1 = time.perf_counter()
+        p, b, o, losses, skipped, metrics = tr.train_scan(
+            *state, tr.cache, batches, tr.step_generator,
+            TRAIN_STEP0 + c * k, tr.active_sh_degree, tr.region_lap,
+            tr.region_lap, tr.lap_pos_w, tr.lap_color_w)
+        all_losses += losses.cpu().tolist()
+        times.append(time.perf_counter() - t1)
+        lp += metrics["photo_lpips_patch"].cpu().tolist()
+        if any(x != 0.0 for x in skipped.cpu().tolist()):
+            raise AssertionError("phase 17: skipped steps")
+        state = (p, b, o)
+    launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
+    log(f"[options train] 16 steps from step {TRAIN_STEP0}: chunk wall "
+        f"{times[0]:.3f}s, {times[1]:.3f}s (host clock, steps/s "
+        f"{k / times[0]:.3f}, {k / times[1]:.3f}), launches {launches}")
+    log(f"[options train] losses {[round(x, 5) for x in all_losses]}, "
+        f"lpips_patch {[round(x, 6) for x in lp]}")
+    if not all(math.isfinite(x) for x in all_losses) or not all(
+            math.isfinite(x) and x > 0 for x in lp):
+        raise AssertionError("phase 17: a loss is not finite or an LPIPS "
+                             "term not positive")
+    for name in ("composite_fwd", "composite_bwd", "triplane_bwd"):
+        if launches[name] != 2 * k:
+            raise AssertionError(f"phase 17: {name} launched "
+                                 f"{launches[name]} times in {2 * k} steps")
+    del state, p, b, o
+
+    # ---- 17.2 the same functions on the card and on the CPU
+    cpu = torch.device("cpu")
+    batch0 = {name: v[0] for name, v in batches.items()}
+    draws = draw_step_randoms(torch.Generator(device=dev).manual_seed(SEED),
+                              batch0["mask"], w)
+    with torch.no_grad():
+        out = avatar_forward(tr.params, tr.buffers, tr.avatar_cfg,
+                             tr.template, tr.cache, dataset_idx=0)
+        render = rasterize(out["xyz"], out["scales"], out["rotq"],
+                           out["opacity"][:, 0], out["shs"], tr.camera,
+                           sh_degree=3, bg=draws["bg"],
+                           alive=tr.buffers.alive > 0.5,
+                           **tr.raster_kw)["render"]
+        m = batch0["mask"][None]
+        gt = batch0["rgb"] * m + draws["bg"][:, None, None] * (1 - m)
+        noise = draws["noise"]
+        pred_p = crop_patches(render * m + noise * (1 - m), draws["ys"],
+                              draws["xs"], w.patch_size)
+        gt_p = crop_patches(gt * m + noise * (1 - m), draws["ys"],
+                            draws["xs"], w.patch_size)
+    def lpips_on(dtype, where):
+        return LPIPSParams(
+            convs=tuple((a.to(where, dtype), b_.to(where, dtype))
+                        for a, b_ in tr.lpips_params.convs),
+            lins=tuple(x.to(where, dtype) for x in tr.lpips_params.lins),
+            pretrained=tr.lpips_params.pretrained)
+
+    def lpips_term(params, pp, gp):
+        pp = pp.detach().requires_grad_(True)
+        term = w.lpips * lpips_distance(params, clip(pp, hi=1.0), gp).mean()
+        return term, torch.autograd.grad(term, pp)[0]
+
+    term_d, g_d = lpips_term(tr.lpips_params, pred_p, gt_p)
+    term_c, g_c = lpips_term(lpips_on(torch.float32, cpu), pred_p.cpu(),
+                             gt_p.cpu())
+    _, g_64 = lpips_term(lpips_on(torch.float64, cpu), pred_p.cpu().double(),
+                         gt_p.cpu().double())
+    log(f"[options] LPIPS term card {float(term_d.detach()):.8f} CPU "
+        f"{float(term_c.detach()):.8f}")
+    close_rel("LPIPS term", term_d.reshape(1), term_c.reshape(1),
+              LPIPS_RTOL)
+    l2 = {name: float((g.double().cpu() - g_64).norm() / g_64.norm())
+          for name, g in (("card", g_d), ("cpu float32", g_c))}
+    mx = {name: float((g.double().cpu() - g_64).abs().max()
+                      / g_64.abs().max())
+          for name, g in (("card", g_d), ("cpu float32", g_c))}
+    log(f"[options] LPIPS d/dpatches against the CPU's float64 gradient: "
+        f"relative L2 error {l2}, largest element error / largest element "
+        f"{mx}")
+    if not (bool(torch.isfinite(g_d).all())
+            and l2["card"] <= LPIPS_GRAD_FACTOR * l2["cpu float32"] + 1e-7):
+        raise AssertionError("LPIPS d/dpatches: the card is further from "
+                             "the float64 gradient than float32 allows")
+    lpips_ms = cuda_ms(lambda: lpips_term(tr.lpips_params, pred_p, gt_p),
+                       n=10)
+    # the cotangent laplacian at the step's terms
+    cot_cpu = to_cpu(tr.region_lap)
+    ld, gd = lap_value_grads(tr.region_lap, out, tr, dev)
+    lc, gc = lap_value_grads(cot_cpu, out, tr, cpu)
+    close_rel("cotangent laplacian loss", ld.reshape(1), lc.reshape(1),
+              LAP_RTOL)
+    for name, a, b_ in zip(("anchors", "hands", "colour"), gd, gc):
+        close_rel(f"cotangent laplacian d/d{name}", a, b_, LAP_GRAD_RTOL,
+                  atol=LAP_GRAD_ATOL)
+    # the windowed statistic on the canonical cloud
+    with torch.no_grad():
+        xyz = get_canon_xyz(tr.params, tr.buffers, tr.avatar_cfg)
+    alive = tr.buffers.alive > 0
+    win_d = knn_window_stat(xyz, 9, valid=alive)
+    win_c = knn_window_stat(xyz.cpu(), 9, valid=alive.cpu())
+    knn_err = close_rel("knn_window_stat", win_d, win_c, 0.0, KNN_ATOL_REL)
+    exact = R.edge_stat(xyz, tr.buffers.alive)
+    rel = ((win_d - exact) / torch.clamp_min(exact, 1e-9))[alive]
+    win_ms = cuda_ms(lambda: knn_window_stat(xyz, 9, valid=alive), n=10)
+    exact_ms = cuda_ms(lambda: R.edge_stat(xyz, tr.buffers.alive), n=5)
+    log(f"[options] knn_window_stat against the exact statistic on "
+        f"{int(alive.sum())} live points: mean |rel| "
+        f"{float(rel.abs().mean()):.5f}, min rel {float(rel.min()):.3e}, "
+        f"max rel {float(rel.max()):.5f}; {win_ms:.4f} ms against the "
+        f"exact one's {exact_ms:.4f} ms | {smi}")
+    if not float(rel.min()) > -1e-5:
+        raise AssertionError("knn_window_stat underestimates the exact "
+                             "statistic")
+
+    # ---- 17.3 the banded laplacian against the gather one
+    lap_cfg = tr.cfg.human.loss.laplacian
+    cot = tr.region_lap
+    builds = {}
+    for kind, backend in (("cotangent", None), ("banded", "banded"),
+                          ("gather", "gather")):
+        if backend:
+            # the standard laplacian at its own table width
+            lap_cfg.type = "standard"
+            tr.cfg.tpu.laplacian_backend = backend
+            tr._lap_pad = None
+        t1 = time.perf_counter()
+        tr._rebuild_laplacians()
+        builds[kind] = (time.perf_counter() - t1, tr.region_lap)
+    band, gather = builds["banded"][1], builds["gather"][1]
+    lb, gb = lap_value_grads(band, out, tr, dev)
+    lg, gg = lap_value_grads(gather, out, tr, dev)
+    close_rel("banded laplacian loss vs gather", lb.reshape(1),
+              lg.reshape(1), LAP_RTOL)
+    for name, a, b_ in zip(("anchors", "hands", "colour"), gb, gg):
+        close_rel(f"banded laplacian d/d{name} vs gather", a, b_,
+                  LAP_GRAD_RTOL, atol=LAP_GRAD_ATOL)
+    lap_ms = {kind: cuda_ms(lambda lap=lap: lap_value_grads(
+        lap, out, tr, dev), n=10) for kind, lap in (
+            ("gather", gather), ("banded", band), ("cotangent", cot))}
+    log(f"[options] laplacian loss + backward (3 fused terms, CUDA events)"
+        f" {', '.join(f'{k_} {v:.4f} ms' for k_, v in lap_ms.items())}; "
+        f"host builds {', '.join(f'{k_} {v[0]:.3f} s' for k_, v in builds.items())}"
+        f"; band width {band.band.shape[1]}, cotangent rows "
+        f"{tuple(cot.neighbors.shape)}, gather table "
+        f"{tuple(gather.neighbors.shape)}; LPIPS term forward + backward "
+        f"{lpips_ms:.4f} ms a step | {smi}")
+    del builds, band, gather, cot_cpu
+
+    # ---- 17.4 rasterize_multi: two avatars, one launch
+    alive_b = tr.buffers.alive > 0.5
+    shift = torch.tensor(MULTI_OFFSET, device=dev)
+    with torch.no_grad():
+        K.reset_launches()
+        multi = rasterize_multi([out, out], tr.camera,
+                                translations=[torch.zeros(3, device=dev),
+                                              shift],
+                                bg=draws["bg"], sh_degree=3,
+                                alives=[alive_b, alive_b], **tr.raster_kw)
+        n_multi = K.LAUNCHES["composite_fwd"]
+        single = rasterize(
+            torch.cat([out["xyz"], out["xyz"] + shift]),
+            torch.cat([out["scales"]] * 2), torch.cat([out["rotq"]] * 2),
+            torch.cat([out["opacity"][:, 0]] * 2),
+            torch.cat([out["shs"]] * 2), tr.camera, sh_degree=3,
+            bg=draws["bg"], alive=torch.cat([alive_b] * 2), **tr.raster_kw)
+    same = torch.equal(multi["render"], single["render"])
+    cover = float((multi["transmittance"] < 0.5).float().mean())
+    log(f"[options] rasterize_multi of 2 x {int(alive_b.sum())} gaussians "
+        f"at {tr.camera.height}x{tr.camera.width}: {n_multi} composite_fwd "
+        f"launch, bit for bit one rasterize of the concatenation: {same}, "
+        f"covered {cover:.3f}")
+    if n_multi != 1 or not same or not cover > 0.01:
+        raise AssertionError("rasterize_multi")
+    del multi, single, out
+
+    # ---- 17.5 one chunk under ops/profiling.trace
+    names = ("options_chunk", "options_readback")
+    trace_dir = os.path.join(work, "options_trace")
+    with profiling.trace(trace_dir):
+        for _ in range(PREAMBLE):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with profiling.annotate(names[0]):
+            res = tr.train_scan(tr.params, tr.buffers, tr.opt_state,
+                                tr.cache, batches, tr.step_generator,
+                                TRAIN_STEP0, tr.active_sh_degree,
+                                tr.region_lap, tr.region_lap, tr.lap_pos_w,
+                                tr.lap_color_w)
+        with profiling.annotate(names[1]):
+            res[3].cpu()
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    seen = {e.get("name") for e in events}
+    kernel_ms = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel"
+                    and SPIN not in e.get("name", "")) / 1e3
+    CHUNK_DEVICE_MS["phase 17 (knn window, cotangent, LPIPS)"] = kernel_ms
+    log(f"[options trace] ranges {[n for n in names if n in seen]} in the "
+        f"trace; the chunk's kernels {kernel_ms:.3f} ms of device time; "
+        f"chunks' device time {CHUNK_DEVICE_MS} | {smi}")
+    if any(n not in seen for n in names) or not kernel_ms > 0:
+        raise AssertionError("profiling.trace: a range or the kernels are "
+                             "missing from the trace")
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,28 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # approximate="none": exact erf
 
 
+class Softplus(torch.autograd.Function):
+    """jax.nn.softplus = logaddexp(x, 0): log1p(exp(-|x|)) + max(x, 0)
+    forward, and logaddexp's derivative exp(x - out) (0.5 at 0, the
+    logistic elsewhere); autograd of the forward would pass torch.abs'
+    0 and clamp_min's full cotangent at x = 0 (derivative 1)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return Softplus.apply(x)
+
+
 def geometry_layer_shapes(cfg: DecoderConfig) -> dict:
     out = {
         "net0": (cfg.n_features, cfg.geo_hidden),
@@ -85,8 +107,7 @@ def geometry_decoder(p: dict, feats: torch.Tensor,
     rotations = _linear(p["rot"], x) if not cfg.isotropic else None
     s = _gelu(_linear(p["scales0"], x))
     scales_aux = _linear(p["scales1"], s)
-    # jax.nn.softplus: log1p(exp(-|x|)) + max(x, 0), no linear cutoff
-    scales = torch.log1p(torch.exp(-scales_aux.abs())) + scales_aux.clamp_min(0)
+    scales = softplus(scales_aux)  # jax.nn.softplus, no linear cutoff
     if scales.shape[-1] == 1:
         scales_aux = scales_aux.expand(-1, 3)
         scales = scales.expand(-1, 3)

@@ -1,4 +1,4 @@
-"""LPIPS perceptual distance (VGG16 backbone), forward only (port of
+"""LPIPS perceptual distance (VGG16 backbone) (port of
 sings_tpu/losses/lpips.py).
 
 VGG16 conv features at relu{1_2, 2_2, 3_3, 4_3, 5_3}, per-channel unit
@@ -13,9 +13,13 @@ load_weights(path) reads an .npz export of the official weights (keys
 conv{i}_w, conv{i}_b, lin{j}_w); init_random(generator) draws
 deterministic random features from a torch.Generator (the JAX package's
 distribution, not its bits; lpips_params_from_numpy carries JAX's own
-draws over for the tests). The training loss still refuses a positive
-LPIPS weight (train/trainer.py) until pretrained weights ship with the
-repository; validation reports the random-feature metric.
+draws over for the tests). Validation reports the distance as a
+metric; with human.loss.lpips_w > 0 it is also a training loss
+(train/step.py), at lpips_w * tpu.random_lpips_factor with random
+features. Its gradient is autograd's through conv2d, relu and
+max_pool2d: max_pool2d passes a window's cotangent to its first
+maximum, as JAX's reduce_window max does, so flat (clipped) patches
+get the same gradient; relu's derivative is 0 at 0 in both.
 """
 from __future__ import annotations
 

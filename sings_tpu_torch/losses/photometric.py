@@ -19,14 +19,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.clip import abs as jabs
 from ..ops.clip import clip
 from ..ops.ssim import ssim
 
 
 def masked_l1(pred: torch.Tensor, gt: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-    """sum |pred - gt| / sum(mask)."""
-    return torch.abs(pred - gt).sum() / torch.clamp_min(mask.sum(), 1.0)
+    """sum |pred - gt| / sum(mask) (|x| with jnp.abs' gradient at 0)."""
+    return jabs(pred - gt).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def ssim_loss(pred: torch.Tensor, gt: torch.Tensor,
@@ -105,8 +106,7 @@ def grad_pyramid_distance(pred: torch.Tensor, gt: torch.Tensor,
         gdx = gt[..., :, 1:] - gt[..., :, :-1]
         pdy = pred[..., 1:, :] - pred[..., :-1, :]
         gdy = gt[..., 1:, :] - gt[..., :-1, :]
-        total = total + torch.abs(pdx - gdx).mean() + \
-            torch.abs(pdy - gdy).mean()
+        total = total + jabs(pdx - gdx).mean() + jabs(pdy - gdy).mean()
         if lvl < levels - 1:
             pred, gt = F.avg_pool2d(pred, 2), F.avg_pool2d(gt, 2)
     return total / levels

@@ -8,13 +8,18 @@ Every term works on the padded static buffers with an `alive` mask:
   * mesh_edge_loss: mean squared edge length;
   * RegionLaplacian: the per-region uniform graph laplacian of the
     anchor mesh as one padded neighbour table (build_region_laplacian
-    runs on the host after each topology change).
+    runs on the host after each topology change);
+  * CotRegionLaplacian: the cotangent laplacian over overlapping
+    region partitions, weights frozen at the build;
+  * BandedRegionLaplacian: the uniform laplacian in a reverse
+    Cuthill-McKee order, applied as skewed dense blocks of its band.
 
-The laplacian is the JAX package's "gather" backend: the forward is a
-neighbour gather and its gradient is PyTorch's autograd of it (a
-scatter-add, where JAX uses a custom transposed gather; the same sums
-in another order). The "banded" backend of the JAX package, a layout of
-the same matvec for the TPU's matrix unit, is not ported.
+The uniform laplacian's "gather" backend: the forward is a neighbour
+gather and its gradient is PyTorch's autograd of it (a scatter-add,
+where JAX uses a custom transposed gather; the same sums in another
+order). The cotangent and banded laplacians keep the JAX package's
+custom adjoints as autograd Functions: a gather over a host-built
+transposed table, the inverse permutation, the transposed band.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.knn import knn
+from ..ops.knn import knn, knn_window_stat
 
 
 def _masked_norm(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -64,10 +69,15 @@ def l2_norm_loss(cfg: L2NormConfig, xyz_offsets: torch.Tensor,
 
 
 @torch.no_grad()
-def edge_stat(xyz_canon: torch.Tensor, alive: torch.Tensor,
-              k: int = 9) -> torch.Tensor:
+def edge_stat(xyz_canon: torch.Tensor, alive: torch.Tensor, k: int = 9,
+              backend: str = "dense") -> torch.Tensor:
     """Per-gaussian mean distance to its K-1 nearest live neighbours,
-    (N,), detached (dense exact KNN; idx 0 is the point itself)."""
+    (N,), detached. backend "dense": the exact KNN (idx 0 is the point
+    itself); "window": Morton-curve candidate windows (approximate)."""
+    if backend == "window":
+        return knn_window_stat(xyz_canon, k, valid=alive > 0)
+    if backend != "dense":
+        raise ValueError(f"edge_stat backend {backend!r}")
     dists, _ = knn(xyz_canon, k, valid=alive > 0)
     return torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(dim=1)
 
@@ -80,10 +90,12 @@ def gaussians_edge_loss_from_stat(stat: torch.Tensor, scales: torch.Tensor,
 
 
 def gaussians_edge_loss(xyz_canon: torch.Tensor, scales: torch.Tensor,
-                        alive: torch.Tensor, k: int = 9) -> torch.Tensor:
-    """mean (scale_i - mean KNN edge length)^2, dense KNN."""
-    return gaussians_edge_loss_from_stat(edge_stat(xyz_canon, alive, k=k),
-                                         scales, alive)
+                        alive: torch.Tensor, k: int = 9,
+                        backend: str = "dense") -> torch.Tensor:
+    """mean (scale_i - mean KNN edge length)^2, the KNN by `backend`
+    (edge_stat)."""
+    return gaussians_edge_loss_from_stat(
+        edge_stat(xyz_canon, alive, k=k, backend=backend), scales, alive)
 
 
 def mesh_edge_loss(verts: torch.Tensor, edges: torch.Tensor,
@@ -93,6 +105,37 @@ def mesh_edge_loss(verts: torch.Tensor, edges: torch.Tensor,
     d = verts[e[:, 0]] - verts[e[:, 1]]
     sq = torch.sum(d * d, dim=1) * edge_valid
     return sq.sum() / torch.clamp_min(edge_valid.sum(), 1.0)
+
+
+def _region_sums(lx, terms, label, weights, *, row_mask=None, row_w=None,
+                 inv_count=None):
+    """The per-term losses of loss_fused from the laplacian rows lx, in
+    the JAX package's order of operations: sum over rows of
+    |lx_row|^2 (* row_mask) * (w (* inv_count))[label] (* row_w) / F, w
+    the term's region weights, masked to `regions` when given."""
+    outs = []
+    f0 = 0
+    for x, region_weights, regions in terms:
+        f = x.shape[-1]
+        lxi = lx[:, f0: f0 + f]
+        f0 += f
+        per_row = torch.sum(lxi * lxi, dim=-1)
+        if row_mask is not None:
+            per_row = per_row * row_mask
+        w = weights if region_weights is None else region_weights
+        if inv_count is not None:
+            w = w * inv_count
+        wv = w[label]
+        if row_w is not None:
+            wv = wv * row_w
+        wv = wv / f
+        if regions is not None:
+            sel = torch.zeros_like(label, dtype=torch.bool)
+            for r in regions:
+                sel = sel | (label == r)
+            wv = wv * sel.to(x.dtype)
+        outs.append(torch.sum(per_row * wv))
+    return outs
 
 
 class RegionLaplacian(NamedTuple):
@@ -127,23 +170,9 @@ class RegionLaplacian(NamedTuple):
         deg = torch.clamp_min(self.nbr_valid.sum(-1), 1.0)
         mean_nb = (xcat[nb] * self.nbr_valid[..., None]).sum(1) / deg[:, None]
         lx = mean_nb - xcat
-        label = self.label.long()
-        outs = []
-        f0 = 0
-        for x, region_weights, regions in terms:
-            f = x.shape[-1]
-            lxi = lx[:, f0: f0 + f]
-            f0 += f
-            per_v = torch.sum(lxi * lxi, dim=-1) * self.vert_valid
-            w = self.weights if region_weights is None else region_weights
-            wv = (w * self.inv_count)[label] / f
-            if regions is not None:
-                sel = torch.zeros_like(label, dtype=torch.bool)
-                for r in regions:
-                    sel = sel | (label == r)
-                wv = wv * sel.to(x.dtype)
-            outs.append(torch.sum(per_v * wv))
-        return outs
+        return _region_sums(lx, terms, self.label.long(), self.weights,
+                            row_mask=self.vert_valid,
+                            inv_count=self.inv_count)
 
 
 def build_region_laplacian(edges: np.ndarray, vertex_label: np.ndarray,
@@ -191,3 +220,344 @@ def build_region_laplacian(edges: np.ndarray, vertex_label: np.ndarray,
         inv_count=t((1.0 / np.maximum(counts, 1)).astype(np.float32)),
         weights=t(np.asarray(region_weights, np.float32)),
     )
+
+
+
+# ---------------------------------------------------------------------------
+# The cotangent region laplacian (laplacian.type: cotangent)
+
+
+class _WeightedNeighborSum(torch.autograd.Function):
+    """y_r = sum_d w[r, d] x[nb[r, d]]; the adjoint is the transposed
+    gather gx_v = sum_d wt[v, d] g[nbt[v, d]] over host-built tables (no
+    scatter), as the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, nb, w, nbt, wt, x):
+        ctx.save_for_backward(nbt, wt)
+        return torch.einsum("rd,rdf->rf", w, x[nb.long()])
+
+    @staticmethod
+    def backward(ctx, g):
+        nbt, wt = ctx.saved_tensors
+        return None, None, None, None, torch.einsum(
+            "vd,vdf->vf", wt, g[nbt.long()])
+
+
+class CotRegionLaplacian(NamedTuple):
+    """Padded cotangent laplacian rows over (region, vertex) memberships.
+
+    Region partitions overlap (every vertex of a face that touches the
+    region), so a boundary vertex owns one row per adjacent region. Row
+    r of Lx = sum_j cot_w(r, j) x_j with a zero diagonal (pytorch3d's
+    cot_laplacian weights, applied raw).
+
+      neighbors/nbr_w: (R, D) gather table and cotangent weights per row
+      t_neighbors/t_w: (C, Dt) the transposed table, for the adjoint
+      label:           (R,) region id per row
+      row_w:           (R,) 1 / |partition of the row's region|
+      weights:         (15,) region weights
+    """
+
+    neighbors: torch.Tensor
+    nbr_w: torch.Tensor
+    t_neighbors: torch.Tensor
+    t_w: torch.Tensor
+    label: torch.Tensor
+    row_w: torch.Tensor
+    weights: torch.Tensor
+
+    def loss(self, x, region_weights=None, regions=None):
+        (out,) = self.loss_fused([(x, region_weights, regions)])
+        return out
+
+    def loss_fused(self, terms):
+        """RegionLaplacian.loss_fused's contract, one gather."""
+        xcat = torch.cat([t[0] for t in terms], dim=-1)
+        lx = _WeightedNeighborSum.apply(self.neighbors, self.nbr_w,
+                                        self.t_neighbors, self.t_w, xcat)
+        return _region_sums(lx, terms, self.label.long(), self.weights,
+                            row_w=self.row_w)
+
+
+def cot_edge_weights(verts: np.ndarray, faces: np.ndarray,
+                     eps: float = 1e-12):
+    """Symmetric cotangent weights per directed face edge (pytorch3d's
+    cot_laplacian: the cotangent of the angle opposite each edge,
+    (B2 + C2 - A2) / (4 S), from every face that holds it). Returns
+    (rows, cols, w) COO triplets, both directions."""
+    v0, v1, v2 = (verts[faces[:, i]] for i in range(3))
+    a = np.linalg.norm(v1 - v2, axis=1)
+    b = np.linalg.norm(v0 - v2, axis=1)
+    c = np.linalg.norm(v0 - v1, axis=1)
+    s = 0.5 * (a + b + c)
+    area = np.sqrt(np.clip(s * (s - a) * (s - b) * (s - c), eps, None))
+    a2, b2, c2 = a * a, b * b, c * c
+    cota = (b2 + c2 - a2) / (4.0 * area)   # at v0, opposite edge a
+    cotb = (a2 + c2 - b2) / (4.0 * area)   # at v1
+    cotc = (a2 + b2 - c2) / (4.0 * area)   # at v2
+    # edge (v1, v2) gets cota, (v2, v0) cotb, (v0, v1) cotc
+    ii = faces[:, [1, 2, 0]].reshape(-1)
+    jj = faces[:, [2, 0, 1]].reshape(-1)
+    ww = np.stack([cota, cotb, cotc], axis=1).reshape(-1)
+    return (np.concatenate([ii, jj]), np.concatenate([jj, ii]),
+            np.concatenate([ww, ww]))
+
+
+def _pad_table(src, dst, val, c_rows, pad_to=None, fill=0):
+    """COO (src -> dst, val) to padded (rows, Dmax) gather tables."""
+    order = np.argsort(src, kind="stable")
+    src, dst, val = src[order], dst[order], val[order]
+    deg = np.bincount(src, minlength=c_rows)
+    dmax = max(int(deg.max()) if len(src) else 1, 1)
+    if pad_to is not None:
+        dmax = max(dmax, pad_to)
+    offs = np.zeros(c_rows + 1, np.int64)
+    np.cumsum(deg, out=offs[1:])
+    col = np.arange(len(src)) - offs[src]
+    nb = np.zeros((c_rows, dmax), np.int32)
+    nw = np.full((c_rows, dmax), float(fill), np.float32)
+    nb[src, col] = dst.astype(np.int32)
+    nw[src, col] = val.astype(np.float32)
+    return nb, nw
+
+
+def build_cot_region_laplacian(verts: np.ndarray, faces: np.ndarray,
+                               vertex_label: np.ndarray,
+                               region_weights: np.ndarray,
+                               num_regions: int = 15,
+                               pad_rows_to: int | None = None,
+                               pad_width_to: int | None = None,
+                               device="cpu") -> CotRegionLaplacian:
+    """Host-side build after every topology change. Per region r: the
+    faces with any vertex labelled r, the partition = their vertices,
+    cotangent weights from those faces only, at the current positions
+    (frozen until the next build). pad_rows_to / pad_width_to: least row
+    count and table width (grow-only callers keep the shapes)."""
+    verts = np.asarray(verts, np.float64)
+    faces = np.asarray(faces)
+    labels = np.asarray(vertex_label).astype(np.int64)
+    c = labels.shape[0]
+
+    row_src, row_dst, row_val, row_lbl = [], [], [], []
+    part_sizes = np.ones(num_regions)
+    row0 = 0
+    rows_of_region = []
+    for r in range(num_regions):
+        fsel = faces[np.any(labels[faces] == r, axis=1)]
+        part = np.unique(fsel)
+        part_sizes[r] = max(len(part), 1)
+        v2row = np.full(c, -1, np.int64)
+        v2row[part] = row0 + np.arange(len(part))
+        if len(fsel):
+            rr, cc, ww = cot_edge_weights(verts, fsel)
+            row_src.append(v2row[rr])
+            row_dst.append(cc)
+            row_val.append(ww)
+        rows_of_region.append((row0, len(part)))
+        row_lbl.append(np.full(len(part), r, np.int64))
+        row0 += len(part)
+
+    n_rows = row0
+    src = np.concatenate(row_src) if row_src else np.zeros(0, np.int64)
+    dst = np.concatenate(row_dst) if row_dst else np.zeros(0, np.int64)
+    val = np.concatenate(row_val) if row_val else np.zeros(0)
+    # an edge shared by two faces accumulates both weights
+    key = src * c + dst
+    uk, inv = np.unique(key, return_inverse=True)
+    acc = np.zeros(len(uk))
+    np.add.at(acc, inv, val)
+    src, dst, val = uk // c, uk % c, acc
+
+    if pad_rows_to is not None and n_rows < pad_rows_to:
+        row_lbl.append(np.zeros(pad_rows_to - n_rows, np.int64))
+        n_rows = pad_rows_to
+    lbl = (np.concatenate(row_lbl) if row_lbl
+           else np.zeros(n_rows, np.int64))
+
+    nb, nw = _pad_table(src, dst, val, n_rows, pad_to=pad_width_to)
+    nbt, nwt = _pad_table(dst, src, val, c, pad_to=pad_width_to)
+
+    row_w = np.zeros(n_rows, np.float32)
+    for r, (r0, ln) in enumerate(rows_of_region):
+        row_w[r0: r0 + ln] = 1.0 / part_sizes[r]
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return CotRegionLaplacian(
+        neighbors=t(nb), nbr_w=t(nw), t_neighbors=t(nbt), t_w=t(nwt),
+        label=t(lbl.astype(np.int32)), row_w=t(row_w),
+        weights=t(np.asarray(region_weights, np.float32)))
+
+
+# ---------------------------------------------------------------------------
+# The banded region laplacian (tpu.laplacian_backend: banded): the uniform
+# laplacian in a reverse Cuthill-McKee order, where every edge has
+# |i - j| <= B, so L is a band of width W = 2B + 1 applied as blocked
+# dense matmuls (each block's band skewed into a dense (R, R + W - 1) tile
+# by a pad and a reshape) after one permutation gather of the inputs.
+
+
+class _PermRows(torch.autograd.Function):
+    """x[perm], whose adjoint is g[inv_perm] (a gather, no scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g[inv_perm.long()], None, None
+
+
+# blocks of _band_apply_raw in one batched matmul (memory only)
+BAND_BLOCKS_PER_PASS = 64
+
+
+def _band_apply_raw(band: torch.Tensor, x: torch.Tensor,
+                    rblk: int = 512) -> torch.Tensor:
+    """y_i = sum_k band[i, k] x[i + k - B] as one float32 matmul per
+    block of rblk rows: padding each band row to W + R and reflattening
+    at stride W + R - 1 lands row i's entries at columns [i, i + W) of
+    a dense (R, R + W - 1) tile, multiplied by the block's input window
+    (BAND_BLOCKS_PER_PASS blocks in one batched matmul)."""
+    c, w = band.shape
+    f = x.shape[1]
+    b = (w - 1) // 2
+    nblk = -(-c // rblk)
+    xp = torch.nn.functional.pad(x, (0, 0, b, b + nblk * rblk - c))
+    bandp = torch.nn.functional.pad(band, (0, 0, 0, nblk * rblk - c))
+    span = rblk + w - 1
+    out = []
+    for i0 in range(0, nblk, BAND_BLOCKS_PER_PASS):
+        nb_ = min(BAND_BLOCKS_PER_PASS, nblk - i0)
+        bb = bandp[i0 * rblk: (i0 + nb_) * rblk].reshape(nb_, rblk, w)
+        d = torch.nn.functional.pad(bb, (0, rblk)).reshape(nb_, -1)
+        d = d[:, : rblk * span].reshape(nb_, rblk, span)
+        xw = xp[i0 * rblk: (i0 + nb_ - 1) * rblk + span].unfold(
+            0, span, rblk).transpose(1, 2)               # (nb_, span, f)
+        out.append(torch.matmul(d, xw).reshape(-1, f))
+    return torch.cat(out)[:c]
+
+
+class _BandMatvec(torch.autograd.Function):
+    """L x through the band; the adjoint L^T g through band_t."""
+
+    @staticmethod
+    def forward(ctx, band, band_t, x):
+        ctx.save_for_backward(band_t)
+        return _band_apply_raw(band, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (band_t,) = ctx.saved_tensors
+        return None, None, _band_apply_raw(band_t, g.contiguous())
+
+
+class BandedRegionLaplacian(NamedTuple):
+    """RegionLaplacian's loss in band storage (permuted order).
+
+      band/band_t:      (C, W) rows of L and L^T in RCM order, W = 2B + 1
+      perm:             (C,) original slot of each permuted row
+      inv_perm:         its inverse
+      label/vert_valid: per vertex, in permuted order
+      inv_count/weights: per region
+    """
+
+    band: torch.Tensor
+    band_t: torch.Tensor
+    perm: torch.Tensor
+    inv_perm: torch.Tensor
+    label: torch.Tensor
+    vert_valid: torch.Tensor
+    inv_count: torch.Tensor
+    weights: torch.Tensor
+
+    def loss(self, x, region_weights=None, regions=None):
+        (out,) = self.loss_fused([(x, region_weights, regions)])
+        return out
+
+    def loss_fused(self, terms):
+        xcat = torch.cat([t[0] for t in terms], dim=-1)
+        xp = _PermRows.apply(xcat, self.perm, self.inv_perm)
+        lx = _BandMatvec.apply(self.band, self.band_t, xp)
+        return _region_sums(lx, terms, self.label.long(), self.weights,
+                            row_mask=self.vert_valid,
+                            inv_count=self.inv_count)
+
+
+def build_region_laplacian_banded(edges: np.ndarray,
+                                  vertex_label: np.ndarray,
+                                  region_weights: np.ndarray,
+                                  num_regions: int = 15,
+                                  pad_width: int | None = None,
+                                  width_fn=None,
+                                  device="cpu") -> BandedRegionLaplacian:
+    """Host-side RCM order and band tables. pad_width: least W
+    (grow-only callers keep the shapes); width_fn: raw W -> padded W,
+    applied before pad_width, so that one build sizes the band."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    labels = np.asarray(vertex_label).astype(np.int64)
+    edges = np.asarray(edges)
+    c = labels.shape[0]
+
+    in_region = (labels >= 0) & (labels < num_regions)
+    if len(edges):
+        edge_lbl = labels[edges]
+        same = (edge_lbl[:, 0] == edge_lbl[:, 1]) & in_region[edges[:, 0]]
+        sel = edges[same]
+    else:
+        sel = np.zeros((0, 2), np.int64)
+
+    if len(sel):
+        m = coo_matrix(
+            (np.ones(len(sel) * 2),
+             (np.r_[sel[:, 0], sel[:, 1]], np.r_[sel[:, 1], sel[:, 0]])),
+            shape=(c, c)).tocsr()
+        perm = np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
+                          dtype=np.int64)
+    else:
+        perm = np.arange(c, dtype=np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(c)
+
+    src = np.concatenate([sel[:, 0], sel[:, 1]])
+    dst = np.concatenate([sel[:, 1], sel[:, 0]])
+    ps, pd = inv[src], inv[dst]
+    bw = int(np.abs(ps - pd).max()) if len(ps) else 0
+    w = 2 * bw + 1
+    if width_fn is not None:
+        w = max(w, int(width_fn(w)))
+    if pad_width is not None:
+        w = max(w, pad_width)
+    b = (w - 1) // 2
+
+    deg = np.bincount(ps, minlength=c).astype(np.float32)
+    wval = 1.0 / np.maximum(deg[ps], 1.0)
+
+    band = np.zeros((c, w), np.float32)
+    band_t = np.zeros((c, w), np.float32)
+    np.add.at(band, (ps, pd - ps + b), wval)
+    np.add.at(band_t, (pd, ps - pd + b), wval)
+    valid_p = in_region[perm]
+    diag = np.where(valid_p, -1.0, 0.0).astype(np.float32)
+    band[np.arange(c), b] += diag
+    band_t[np.arange(c), b] += diag
+
+    counts = np.bincount(labels[in_region], minlength=num_regions)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return BandedRegionLaplacian(
+        band=t(band), band_t=t(band_t), perm=t(perm.astype(np.int32)),
+        inv_perm=t(inv.astype(np.int32)),
+        label=t(np.where(in_region, labels, 0)[perm].astype(np.int32)),
+        vert_valid=t(valid_p.astype(np.float32)),
+        inv_count=t((1.0 / np.maximum(counts, 1)).astype(np.float32)),
+        weights=t(np.asarray(region_weights, np.float32)))

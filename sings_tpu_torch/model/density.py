@@ -1,5 +1,6 @@
-"""Density control: hybrid mesh subdivision densify + edge-collapse prune
-(port of sings_tpu/model/density.py, the hybrid strategy).
+"""Density control: hybrid mesh subdivision densify + edge-collapse prune,
+and the vanilla 3DGS clone / split / prune (port of
+sings_tpu/model/density.py).
 
 Host-side numpy, as in the JAX package, which rewrote the reference's
 topology mutation (sings_hybrid.py:1022-1150 densify_and_subdivide,
@@ -13,8 +14,9 @@ topology mutation (sings_hybrid.py:1022-1150 densify_and_subdivide,
     (train/optim.zero_moments_for_slots).
 
 The edge collapse is the native library of mesh/native.py when it
-builds, else mesh/ops.collapse_edges. The vanilla clone/split strategy
-(densify_and_prune_vanilla) is not ported.
+builds, else mesh/ops.collapse_edges. densify_and_prune_vanilla is
+point-based (its new gaussians are not mesh vertices) and draws its
+split samples from a numpy RandomState as the JAX package does.
 """
 from __future__ import annotations
 
@@ -287,4 +289,100 @@ def _unchanged(buffers_np: dict, c: int, n_alive: int) -> DensityResult:
         faces=buffers_np["faces"], face_valid=buffers_np["face_valid"],
         edges=buffers_np["edges"], edge_valid=buffers_np["edge_valid"],
         changed_slots=np.zeros(c, np.float32), num_alive=n_alive,
+    )
+
+
+def densify_and_prune_vanilla(
+    buffers_np: dict,
+    xyz: np.ndarray,
+    fwd: dict,
+    *,
+    grad_threshold: float = 0.0002,
+    min_opacity: float = 0.005,
+    percent_dense: float = 0.01,
+    densify_extent: float = 1.0,
+    max_screen_size: float | None = 20.0,
+    max_n_gs: int = 200_000,
+    rng: np.random.RandomState | None = None,
+) -> DensityResult:
+    """Classic 3DGS clone / split / prune: small high-gradient gaussians
+    are cloned in place into free slots, large ones split into two
+    children drawn from the gaussian (parent pruned, multiplier / 1.6),
+    transparent or huge ones pruned. Faces are unchanged."""
+    rng = rng or np.random.RandomState(0)
+    alive = buffers_np["alive"] > 0.5
+    c = alive.shape[0]
+    n_alive = int(alive.sum())
+    scale_threshold = percent_dense * densify_extent
+
+    grads = np.nan_to_num(
+        buffers_np["xyz_grad_accum"] / np.maximum(
+            buffers_np["grad_denom"], 1e-12))
+    scales = fwd["scales_canon"]
+    opacity = fwd["opacity"].reshape(-1)
+    max_scale = scales.max(axis=1)
+
+    out_alive = buffers_np["alive"].copy()
+    out_xyz = xyz.copy()
+    out_mult = buffers_np["scaling_multiplier"].copy()
+    out_lbsw = buffers_np["lbs_weights"].copy()
+    out_labels = buffers_np["vertex_label"].copy()
+    changed = np.zeros(c, np.float32)
+
+    def take_free(k):
+        free = np.where(out_alive < 0.5)[0]
+        return free[: min(k, len(free))]
+
+    budget = max(max_n_gs - n_alive, 0)
+
+    def copy_into(slots, src, xyz_new, mult):
+        out_alive[slots] = 1.0
+        out_xyz[slots] = xyz_new
+        out_mult[slots] = mult
+        out_lbsw[slots] = out_lbsw[src]
+        out_labels[slots] = out_labels[src]
+        changed[slots] = 1.0
+
+    # clone small high-gradient gaussians in place
+    clone_sel = ((grads >= grad_threshold) & (max_scale <= scale_threshold)
+                 & alive)
+    clone_idx = np.where(clone_sel)[0][:budget]
+    slots = take_free(len(clone_idx))
+    clone_idx = clone_idx[: len(slots)]
+    copy_into(slots, clone_idx, fwd["xyz_canon"][clone_idx],
+              out_mult[clone_idx])
+    budget -= len(slots)
+
+    # split large high-gradient gaussians: 2 children sampled from the
+    # gaussian, the parent pruned
+    split_sel = ((grads >= grad_threshold) & (max_scale > scale_threshold)
+                 & alive)
+    split_idx = np.where(split_sel)[0][: max(budget // 2, 0)]
+    if len(split_idx):
+        children = np.repeat(split_idx, 2)
+        slots = take_free(len(children))
+        children = children[: len(slots)]
+        samples = rng.randn(len(children), 3) * scales[children]
+        copy_into(slots, children, fwd["xyz_canon"][children] + samples,
+                  out_mult[children] / (0.8 * 2))
+        out_alive[split_idx] = 0.0
+        changed[split_idx] = 1.0
+
+    # prune transparent / huge gaussians
+    prune = (opacity < min_opacity) & alive
+    if max_screen_size:
+        prune |= (buffers_np["max_radii2d"] > max_screen_size) & alive
+        prune |= (max_scale > 0.1 * densify_extent) & alive
+    prune &= out_alive > 0.5
+    out_alive[prune] = 0.0
+    changed[prune] = 1.0
+
+    return DensityResult(
+        changed=bool(changed.any()), new_xyz=out_xyz, alive=out_alive,
+        scaling_multiplier=out_mult, lbs_weights=out_lbsw,
+        vertex_label=out_labels,
+        anchor_normals=buffers_np["anchor_normals"],
+        faces=buffers_np["faces"], face_valid=buffers_np["face_valid"],
+        edges=buffers_np["edges"], edge_valid=buffers_np["edge_valid"],
+        changed_slots=changed, num_alive=int(out_alive.sum()),
     )

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .clip import clip
+
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
 C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -47,8 +49,9 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """SH -> RGB as the 3DGS rasterizer does: eval + 0.5, clamped at 0."""
-    return torch.clamp_min(eval_sh(deg, sh, dirs) + 0.5, 0.0)
+    """SH -> RGB as the 3DGS rasterizer does: eval + 0.5, clamped at 0
+    with jnp.maximum's gradient (half the cotangent at exactly 0)."""
+    return clip(eval_sh(deg, sh, dirs) + 0.5, lo=0.0)
 
 
 def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ composite_bwd), the photometric and silhouette losses, the regularisers
 laplacian), Adam with per-field learning rates behind the non-finite
 guard, and the density statistics from the screen_probe gradient.
 make_train_scan chains K steps in a Python loop, with the KNN edge
-statistic computed once at the head of the chunk when asked.
+statistic computed once at the head of the chunk when asked
+(knn_backend "chunk"); "dense" and "window" compute it every step.
+With an LPIPS network the photometric loss adds the LPIPS term on the
+masked patches, its gradient by autograd through the VGG features.
 
 The step number is a Python int here (the JAX step traces it), so the
 warmup gates, the laplacian ramp and the opacity-norm switch are
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..losses.lpips import LPIPSParams, lpips_distance
 from ..losses.photometric import (
     PhotometricWeights, draw_step_randoms, photometric_loss,
 )
@@ -57,8 +61,10 @@ class StepConfig(NamedTuple):
     opt_app_from: int
     opacity_norm_from: int        # max(prune_until, densify_until)
     knn_k: int = 9
-    # "dense": the KNN statistic every step; "chunk": once per
-    # make_train_scan chunk, held across its steps
+    # "dense": the exact KNN statistic every step; "window": the
+    # Morton-window statistic every step (approximate, opt-in); "chunk":
+    # the exact statistic once per make_train_scan chunk, held across
+    # its steps
     knn_backend: str = "dense"
     # region_lap_pos and region_lap_color are one laplacian: the colour
     # term joins the fused gather
@@ -85,9 +91,10 @@ def _zeros_for_none(grads, leaves):
 
 
 def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
-                    template, camera: Camera, tx, lpips_fn, raster_kw: dict):
-    """Build the step. tx: train.optim.Optimizer. lpips_fn: None (the
-    LPIPS network is not ported; a positive LPIPS weight needs it).
+                    template, camera: Camera, tx,
+                    lpips_params: LPIPSParams | None, raster_kw: dict):
+    """Build the step. tx: train.optim.Optimizer. lpips_params: the
+    LPIPS network (losses/lpips.py), or None for no LPIPS term.
 
     step(params, buffers, opt_state, cache, batch, generator, step,
          active_sh_degree, region_lap_pos, region_lap_color, lap_pos_w,
@@ -99,10 +106,10 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
     None to draw from `generator`. metrics are 0-d tensors on the device.
     """
     w = step_cfg.weights
-    if w.photometric.lpips > 0 and lpips_fn is None:
-        raise NotImplementedError(
-            "a positive LPIPS weight needs the LPIPS network, which is not "
-            "ported (it waits for pretrained weights in the repository)")
+    lpips_fn = None
+    if lpips_params is not None:
+        def lpips_fn(a, b):
+            return lpips_distance(lpips_params, a, b)
 
     def train_step(params, buffers: AvatarBuffers, opt_state, cache,
                    batch: dict, generator, step: int, active_sh_degree: int,
@@ -161,7 +168,9 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
         else:
             connect = w.gaussian_connect * gaussians_edge_loss(
                 out["xyz_canon"].detach(), out["scales"], alive,
-                k=step_cfg.knn_k)
+                k=step_cfg.knn_k,
+                backend=("dense" if step_cfg.knn_backend == "chunk"
+                         else step_cfg.knn_backend))
 
         pos_terms = []
         if w.lap_position_strength != 0:

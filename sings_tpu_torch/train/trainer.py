@@ -9,8 +9,11 @@ motion 16 frames at a time: decode once, pose a chunk with batched LBS,
 rasterize each frame, quantise to uint8 on the device.
 
 Trainer(cfg, mode="train") also builds the optimizer and its state, the
-loss weights and StepConfig from the YAML keys, the region laplacian,
-the random-feature LPIPS metric, self.train_step / self.train_scan,
+loss weights and StepConfig from the YAML keys (the LPIPS term with
+random features at lpips_w * random_lpips_factor unless pretrained
+weights are given, the dense, chunk or windowed KNN statistic), the
+region laplacian (standard by gather or banded, or cotangent), the
+LPIPS network, self.train_step / self.train_scan,
 and resumes from the latest checkpoint (params, buffers, Adam state,
 step) or pre-fits the decoders. train() is the JAX package's loop:
 K-step chunks between host events (_is_event), checkpoints, validation
@@ -59,7 +62,8 @@ from ..kinematics.template import DeviceTemplate, canonical_pose_cache
 from ..losses.lpips import get_lpips, lpips_distance
 from ..losses.photometric import PhotometricWeights
 from ..losses.regularizers import (
-    L2NormConfig, build_region_laplacian, edge_stat,
+    L2NormConfig, build_cot_region_laplacian, build_region_laplacian,
+    build_region_laplacian_banded, edge_stat,
 )
 from ..model.avatar import (
     AvatarConfig, avatar_forward, avatar_forward_chunk, fit_initial_attrs,
@@ -313,21 +317,19 @@ class Trainer:
         self.opt_state = self.tx.init(self.params)
 
         loss_cfg = hcfg.loss
-        # LPIPS: pretrained weights keep lpips_w, the random-feature
-        # network scales it by random_lpips_factor; a positive weight
-        # needs the loss's backward through the network, which waits for
-        # pretrained weights in the repository (the metric is ported)
-        lpips_path = cfg.tpu.get("lpips_weights")
-        pretrained = bool(lpips_path) and os.path.exists(str(lpips_path))
-        lpips_w = float(loss_cfg.lpips_w)
-        if not pretrained and lpips_w > 0:
-            lpips_w *= float(cfg.tpu.get("random_lpips_factor", 0.05))
-        if lpips_w > 0:
-            raise NotImplementedError(
-                f"LPIPS weight {lpips_w} > 0: the LPIPS training loss is "
-                "not ported; it waits for pretrained VGG-LPIPS weights in "
-                f"the repository (tpu.lpips_weights={lpips_path!r}). Set "
-                "human.loss.lpips_w=0 or tpu.random_lpips_factor=0")
+        # the LPIPS network (validation's metric, and the training loss
+        # when lpips_w > 0): pretrained weights from tpu.lpips_weights
+        # keep lpips_w; random features scale it by random_lpips_factor
+        # (their gradient scale is uncalibrated: at the full weight it
+        # overwhelms L1)
+        self.lpips_params = get_lpips(cfg.tpu.get("lpips_weights"),
+                                      seed=int(cfg.seed), device=dev)
+        lpips_w = loss_cfg.lpips_w
+        if not self.lpips_params.pretrained and loss_cfg.lpips_w > 0:
+            factor = float(cfg.tpu.get("random_lpips_factor", 0.05))
+            print(f"[lpips] no pretrained weights: scaling lpips_w "
+                  f"{loss_cfg.lpips_w} -> {loss_cfg.lpips_w * factor}")
+            lpips_w = loss_cfg.lpips_w * factor
         weights = LossWeights(
             photometric=PhotometricWeights(
                 l1=loss_cfg.l1_w, ssim=loss_cfg.ssim_w, lpips=lpips_w,
@@ -348,14 +350,18 @@ class Trainer:
             lap_impose_from=int(loss_cfg.laplacian.impose_from_iter),
         )
         dc = hcfg.density_control.hybrid
+        mesh_cfg = dict(cfg.tpu.get("mesh", {}) or {})
+        if int(mesh_cfg.get("dp", 1) or 1) * int(mesh_cfg.get("gs", 1)
+                                                 or 1) > 1:
+            raise NotImplementedError(
+                f"tpu.mesh={mesh_cfg}: the sharded (dp, gs) training step "
+                "is not ported")
         self.inner_steps = int(cfg.tpu.get("inner_steps", 1) or 1)
         knn_backend = str(cfg.tpu.get("knn_backend", "auto"))
         if knn_backend == "auto":
             knn_backend = "chunk" if self.inner_steps > 1 else "dense"
-        if knn_backend not in ("dense", "chunk"):
-            raise NotImplementedError(
-                f"tpu.knn_backend={knn_backend!r}: the port has the dense "
-                "KNN ('dense', 'chunk'); the windowed statistic waits")
+        if knn_backend not in ("dense", "chunk", "window"):
+            raise ValueError(f"tpu.knn_backend={knn_backend!r}")
         self.step_cfg = step_cfg = StepConfig(
             weights=weights, opt_geo_from=hcfg.opt_geo_from,
             opt_app_from=hcfg.opt_app_from,
@@ -363,7 +369,8 @@ class Trainer:
             knn_backend=knn_backend, lap_shared=True)
         self.train_step = make_train_step(
             self.avatar_cfg, step_cfg, self.template, self.camera, self.tx,
-            None, self.raster_kw)
+            self.lpips_params if loss_cfg.lpips_w > 0 else None,
+            self.raster_kw)
         stat_fn = None
         if knn_backend == "chunk":
             acfg = self.avatar_cfg
@@ -381,12 +388,10 @@ class Trainer:
             loss_cfg.laplacian.color_regions_w, DEFAULT_COLOR_REGIONS_W),
             device=dev)
         self._lap_pad = None
+        self._lap_rows_pad = None
+        self._lap_band_pad = None
         self._rebuild_laplacians()
 
-        # the validation metric's network (random features unless
-        # pretrained weights are given)
-        self.lpips_params = get_lpips(cfg.tpu.get("lpips_weights"),
-                                      seed=int(cfg.seed), device=dev)
         self.density_cfg = dict(dc)
         self.order_rng = random.Random(int(cfg.seed))
         # merge into an existing results json instead of overwriting it
@@ -411,23 +416,56 @@ class Trainer:
         self.opt_state = self.tx.init(self.params)
 
     def _rebuild_laplacians(self) -> None:
-        """Region laplacian of the live mesh (standard type, gather
-        backend; "auto" means gather in the port)."""
+        """Region laplacian of the live mesh: laplacian.type standard
+        (tpu.laplacian_backend gather, or banded; "auto" means gather in
+        the port) or cotangent (weights at the canonical anchors, frozen
+        until the next rebuild); every padded shape grows only."""
         b = self.buffers
-        lap_type = str(self.cfg.human.loss.laplacian.type)
-        backend = str(self.cfg.tpu.get("laplacian_backend", "auto"))
-        if lap_type != "standard" or backend not in ("auto", "gather"):
-            raise NotImplementedError(
-                f"laplacian type={lap_type!r} backend={backend!r}: the port "
-                "has the standard laplacian with the gather backend")
         edges = b.edges.cpu().numpy()[b.edge_valid.cpu().numpy() > 0.5]
+        # dead slots keep their last label in the buffer: excluded
         labels = np.where(b.alive.cpu().numpy() > 0.5,
                           b.vertex_label.cpu().numpy(), -1)
-        self.region_lap = build_region_laplacian(
-            edges, labels, self.lap_pos_w.cpu().numpy(), num_regions=15,
-            pad_to=self._lap_pad or 8, device=self.device)
-        self._lap_pad = max(self._lap_pad or 8,
-                            self.region_lap.neighbors.shape[1])
+        lap_w = self.lap_pos_w.cpu().numpy()
+        lap_type = str(self.cfg.human.loss.laplacian.type)
+        if lap_type == "cotangent":
+            faces = b.faces.cpu().numpy()[b.face_valid.cpu().numpy() > 0.5]
+            self.region_lap = build_cot_region_laplacian(
+                self.params.xyz.detach().cpu().numpy(), faces, labels, lap_w,
+                num_regions=15, pad_rows_to=self._lap_rows_pad,
+                pad_width_to=self._lap_pad or 8, device=self.device)
+            self._lap_rows_pad = max(self._lap_rows_pad or 0,
+                                     self.region_lap.neighbors.shape[0])
+        elif lap_type == "standard":
+            backend = str(self.cfg.tpu.get("laplacian_backend", "auto"))
+            if backend == "banded":
+                def bucketed(raw_w: int) -> int:
+                    # grow-only, 64-bucketed half-width with 12% headroom
+                    # from the raw RCM bandwidth
+                    bw_pad = -(-max(int((raw_w - 1) // 2 * 1.12), 1)
+                               // 64) * 64
+                    return 2 * bw_pad + 1
+
+                self.region_lap = build_region_laplacian_banded(
+                    edges, labels, lap_w, num_regions=15,
+                    width_fn=bucketed, pad_width=self._lap_band_pad,
+                    device=self.device)
+                self._lap_band_pad = self.region_lap.band.shape[1]
+                print(f"[laplacian] banded backend, band width "
+                      f"{self._lap_band_pad}", flush=True)
+            elif backend in ("auto", "gather"):
+                self.region_lap = build_region_laplacian(
+                    edges, labels, lap_w, num_regions=15,
+                    pad_to=self._lap_pad or 8, device=self.device)
+            else:
+                raise ValueError(f"tpu.laplacian_backend={backend!r}")
+        else:
+            # 'norm' raises in the JAX package (and its reference) too
+            raise NotImplementedError(
+                f"laplacian.type={lap_type!r} (supported: 'standard', "
+                "'cotangent')")
+        if hasattr(self.region_lap, "neighbors"):
+            self._lap_pad = max(self._lap_pad or 8,
+                                self.region_lap.neighbors.shape[1])
 
     # ------------------------------------------------------------------
     def train(self):

@@ -1,4 +1,4 @@
-"""The port's clamps held against jnp.clip / jnp.maximum at a tie.
+"""The port's clamps and |x| held against JAX at a tie.
 
 JAX passes half the cotangent where a clipped value equals its bound
 (a quarter where it equals both); torch.clamp passes all of it. For
@@ -7,7 +7,10 @@ ops/rotations.py, a value exactly on the bound, and the port's gradient
 against jax.grad of the JAX package's function on the same numpy
 inputs. Where a tie moves a gradient the site uses ops/clip.py's clip
 (JAX's factor); where the clamp's branch gets no cotangent the test
-shows that nothing moves, and the site keeps torch.clamp.
+shows that nothing moves, and the site keeps torch.clamp. Likewise
+|x| at exactly 0 (jnp.abs' derivative +1 there, torch.abs' 0:
+ops/clip.py's abs in the L1 terms), jax.nn.softplus at 0 (0.5) in the
+geometry decoder, and jnp.maximum at SH colour 0.
 """
 import jax
 import jax.numpy as jnp
@@ -15,14 +18,20 @@ import numpy as np
 import pytest
 import torch
 
+from sings_tpu.fields import decoders as jdec
 from sings_tpu.losses import photometric as jph
+from sings_tpu.ops import sh as jsh
+from sings_tpu.ops import ssim as jssim
 from sings_tpu.ops import graphics as jgr
 from sings_tpu.ops import rotations as jrot
 from sings_tpu.ops.rasterizer import common as jcommon
+from sings_tpu_torch.fields import decoders as tdec
 from sings_tpu_torch.losses import photometric as tph
 from sings_tpu_torch.ops import clip as tclip
 from sings_tpu_torch.ops import graphics as tgr
 from sings_tpu_torch.ops import rotations as trot
+from sings_tpu_torch.ops import sh as tsh
+from sings_tpu_torch.ops import ssim as tssim
 from sings_tpu_torch.ops.rasterizer import common as tcommon
 from test_torch_losses import _images, jax_step_draws
 
@@ -209,3 +218,110 @@ def test_axis_angle_floor_ties_move_nothing():
                     trot.axis_angle_to_quaternion)]:
         got, want = _rot_grads(fj, ft, tiny)
         _same(got, want, 1e-5, ft.__name__)
+
+
+@pytest.mark.parametrize("x", [0.0, -0.0, 1.5, -2.0])
+def test_abs_gradient_matches_jax(x):
+    want = float(jax.grad(jnp.abs)(jnp.float32(x)))
+    t = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+    out = tclip.abs(t)
+    out.backward()
+    assert float(out) == abs(x) and float(t.grad) == want
+
+
+@pytest.mark.parametrize("term", ["l1", "grad_pyramid"])
+def test_photometric_abs_tie(term):
+    """masked_l1 and grad_pyramid_distance where prediction and target
+    are equal and flat: |pred - gt| and |dpred - dgt| exactly 0, where
+    jnp.abs passes +1 (torch.abs 0)."""
+    pred, _, mask = _images(7)
+    gt = pred.copy()
+    gt[:, 20:, :] = np.random.RandomState(8).rand(*gt[:, 20:, :].shape)
+    pred[:, :16, :] = 1.0
+    gt[:, :16, :] = 1.0
+    mask[:] = 1.0
+    weights = jph.PhotometricWeights(
+        l1=1.0 if term == "l1" else 0.0, ssim=0.0, lpips=0.0,
+        num_patches=4, patch_size=16,
+        grad_pyramid=1.0 if term == "grad_pyramid" else 0.0)
+    k_photo, draws = jax_step_draws(jax.random.PRNGKey(9), mask, weights)
+    bg = draws["bg"].numpy()
+    gj = jax.grad(lambda x: jph.photometric_loss(
+        k_photo, x, jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(bg),
+        weights, None)[0])(jnp.asarray(pred))
+    tp = torch.tensor(pred, requires_grad=True)
+    vt, _ = tph.photometric_loss(draws, tp, torch.tensor(gt),
+                                 torch.tensor(mask), draws["bg"],
+                                 tph.PhotometricWeights(*weights), None)
+    (gt_,) = torch.autograd.grad(vt, tp)
+    assert float(np.abs(np.asarray(gj)[:, :16]).max()) > 0.0
+    _same(gt_.numpy(), gj, 1e-5)
+
+
+def test_geometry_softplus_tie():
+    """fields/decoders.py's softplus at scales_aux exactly 0: JAX's
+    derivative 0.5 (logaddexp's exp(x - out)); the forward is the
+    port's log1p(exp(-|x|)) + max(x, 0) bit for bit (XLA's log1p and
+    its flushed denormals differ from it by an ulp)."""
+    x = np.array([0.0, -0.0, 1e-3, -3.0, 25.0, -90.0], np.float32)
+    tx = torch.tensor(x)
+    want_v = (torch.log1p(torch.exp(-tx.abs())) + tx.clamp_min(0)).numpy()
+    want_g = np.asarray(jax.grad(lambda v: jnp.sum(jax.nn.softplus(v)))(
+        jnp.asarray(x)))
+    t = torch.tensor(x, requires_grad=True)
+    out = tdec.softplus(t)
+    (g,) = torch.autograd.grad(out.sum(), t)
+    np.testing.assert_array_equal(out.detach().numpy(), want_v)
+    assert float(g[0]) == 0.5 == float(want_g[0])
+    _same(g.numpy(), want_g, 1e-6)
+    # through the decoder: a scales head whose output is 0 for row 0
+    rng = np.random.RandomState(0)
+    cfg = jdec.DecoderConfig(n_features=8)
+    jp = jdec.init_geometry_decoder(jax.random.PRNGKey(0), cfg)
+    jp = jax.tree.map(np.asarray, jp)
+    feats = rng.randn(4, 8).astype(np.float32)
+    jp["scales1"]["w"] = np.zeros_like(jp["scales1"]["w"])
+    jp["scales1"]["b"] = np.zeros_like(jp["scales1"]["b"])
+    gj = jax.grad(lambda p: jnp.sum(jdec.geometry_decoder(
+        p, jnp.asarray(feats), cfg)["scales"]))(
+            jax.tree.map(jnp.asarray, jp))
+    tp = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), jp)
+    out = tdec.geometry_decoder(tp, torch.tensor(feats),
+                                tdec.DecoderConfig(*cfg))["scales"]
+    (gb,) = torch.autograd.grad(out.sum(), tp["scales1"]["b"])
+    _same(gb.numpy(), gj["scales1"]["b"], 1e-6)
+    assert float(gb[0]) == 0.5 * out.shape[0] * out.shape[1]
+
+
+def test_sh_colour_floor_tie():
+    """ops/sh.py::sh_to_rgb at eval_sh + 0.5 exactly 0 (a dc coefficient
+    of -1.7724538 in float32): jnp.maximum's half cotangent."""
+    sh = np.zeros((3, 1, 3), np.float32)
+    sh[0, 0] = np.float32(-1.7724538)
+    sh[1, 0] = 0.3
+    sh[2, 0] = -3.0
+    dirs = np.tile(np.float32([[0.0, 0.0, 1.0]]), (3, 1))
+    fj = lambda v: jnp.sum(jsh.sh_to_rgb(0, v, jnp.asarray(dirs)))  # noqa
+    assert float(np.asarray(jsh.sh_to_rgb(0, jnp.asarray(sh),
+                                          jnp.asarray(dirs)))[0, 0]) == 0.0
+    gj = np.asarray(jax.grad(fj)(jnp.asarray(sh)))
+    t = torch.tensor(sh, requires_grad=True)
+    (g,) = torch.autograd.grad(tsh.sh_to_rgb(0, t, torch.tensor(dirs)).sum(),
+                               t)
+    np.testing.assert_array_equal(g.numpy(), gj)
+
+
+def test_ssim_variance_floor_ties_move_nothing():
+    """ops/ssim.py's variance floors max(E[x^2] - mu^2, 0) at exactly 0
+    (flat 0 and flat 1 windows): the variance's own gradient there is
+    2 w (x - mu) = 0, so JAX's half factor moves no more than rounding;
+    torch.clamp is kept (rtol 1e-5 of the largest value)."""
+    rng = np.random.RandomState(0)
+    a = rng.rand(3, 24, 24).astype(np.float32)
+    b = rng.rand(3, 24, 24).astype(np.float32)
+    a[:, :14, :14] = b[:, :14, :14] = 0.0
+    a[:, 14:, 14:] = b[:, 14:, 14:] = 1.0
+    gj = jax.grad(lambda x: jssim.ssim(x, jnp.asarray(b)))(jnp.asarray(a))
+    t = torch.tensor(a, requires_grad=True)
+    (g,) = torch.autograd.grad(tssim.ssim(t, torch.tensor(b)), t)
+    _same(g.numpy(), gj, 1e-5)

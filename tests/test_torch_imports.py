@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.cli.refine",
                  "sings_tpu_torch.ops.grid_grad",
                  "sings_tpu_torch.ops.bilinear",
-                 "sings_tpu_torch.ops.clip"):
+                 "sings_tpu_torch.ops.clip",
+                 "sings_tpu_torch.ops.profiling",
+                 "sings_tpu_torch.ops.rasterizer.multi"):
         assert importlib.util.find_spec(name) is not None, name
 
 

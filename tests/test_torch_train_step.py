@@ -10,8 +10,8 @@ region laplacian). Both packages then take the same step(s) at step
 chunk-head KNN statistic. Compared: every loss term, the gradients
 (recovered from the first Adam moments), the new parameters and the
 density buffers, at the tolerances stated below. Also the non-finite
-guard, the train-mode Trainer at tiny size, and the LPIPS loss's
-refusal.
+guard, the train-mode Trainer at tiny size, and its LPIPS loss with
+random features.
 """
 import os
 
@@ -403,11 +403,13 @@ def test_trainer_train_mode_builds_and_scans(tmp_path):
     assert torch.equal(p.betas, tr.params.betas)  # optim_betas False
 
 
-def test_trainer_train_loop_and_lpips_are_later_slices(tmp_path):
+def test_trainer_train_loop_and_lpips_are_later_slices(tmp_path, capsys):
     """The training loop is ported (tests/test_torch_train_loop.py): a
     run already at its last step trains no step and ends with the final
-    checkpoint and validation. The LPIPS training loss stays refused
-    until pretrained weights ship with the repository."""
+    checkpoint and validation. The LPIPS training loss is ported too:
+    with random features (no tpu.lpips_weights) the Trainer scales
+    lpips_w 1.0 by random_lpips_factor 0.05, says so as the JAX
+    Trainer does, and a step has a finite, positive LPIPS term."""
     from sings_tpu_torch.train.trainer import Trainer
 
     cfg = _tiny_trainer_cfg(tmp_path, ["train.init_steps=0",
@@ -418,9 +420,22 @@ def test_trainer_train_loop_and_lpips_are_later_slices(tmp_path):
     assert tr.step == 0 and int(tr.opt_state.count) == 0
     assert np.isfinite(result["psnr"]) and np.isfinite(result["lpips"])
     assert os.path.exists(os.path.join(tr.logdir_ckpt, "human_final.npz"))
-    cfg = _tiny_trainer_cfg(tmp_path / "b", ["tpu.random_lpips_factor=0.05"])
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
+    cfg = _tiny_trainer_cfg(tmp_path / "b", ["tpu.random_lpips_factor=0.05",
+                                             "train.init_steps=0"])
+    tr = Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
+    assert "[lpips] no pretrained weights: scaling lpips_w 1.0 -> 0.05" in \
+        capsys.readouterr().out
+    assert tr.step_cfg.weights.photometric.lpips == 0.05
+    frames = list(tr.kit.train_split[:1])
+    batches = {"rgb": tr.images[frames], "mask": tr.masks[frames],
+               "idx": frames, "smpl_scale": torch.ones((1, 1))}
+    _, _, o, losses, skipped, m = tr.train_scan(
+        tr.params, tr.buffers, tr.opt_state, tr.cache, batches,
+        tr.step_generator, STEP, 0, tr.region_lap, tr.region_lap,
+        tr.lap_pos_w, tr.lap_color_w)
+    assert skipped.tolist() == [0.0] and int(o.count) == 1
+    lp = float(m["photo_lpips_patch"][0])
+    assert np.isfinite(lp) and lp > 0 and torch.isfinite(losses).all()
 
 
 def test_chip_smoke_train_dotlist_is_the_recipe():
