@@ -12,10 +12,11 @@ nested 64^3 triplane, multires [1, 2, 4]; 512x512; pair_cap 4), with
 weights made from seed 0: the animation render,
 Trainer(cfg, mode="anim").animate_chunk, in both raster layouts; the
 training step, Trainer(cfg, mode="train").train_scan, as bench.py's
-recipe benchmark drives it (8 steps a chunk); and the training entry
-point, python -m sings_tpu_torch.cli.train (cli.train.main with the kit
-held in memory) with tpu.raster.layout=panel, resumed from a
-checkpoint; the synthetic-template calibration that a default training
+recipe benchmark drives it (8 steps a chunk); multi-case training,
+python -m sings_tpu_torch.cli.train_batch in both modes; and the
+training entry point, python -m sings_tpu_torch.cli.train
+(cli.train.main with the kit held in memory) with
+tpu.raster.layout=panel, resumed from a checkpoint; the synthetic-template calibration that a default training
 run starts with (Trainer(mode="train") with tpu.auto_fit_synthetic
 unset) and python -m sings_tpu_torch.cli.refine; and the kernel
 experiments, python -m
@@ -163,6 +164,22 @@ exp_bwd_variants} at their own sizes. Phases:
                 of their concatenation in one composite_fwd launch; one
                 chunk under ops/profiling.trace with annotate ranges,
                 each in the exported trace, and its kernels' device time
+ 18 cases      (run after phase 16, on phase 7's trainer) multi-case
+                training: one make_case_train_step call on two cases
+                (phase 7's state and its perturbed copy) at step 2000
+                against two single-card train_step calls on the same
+                draws, bit for bit, composite_fwd, composite_bwd and
+                triplane_bwd launched twice each from 0; then python -m
+                sings_tpu_torch.cli.train_batch --simultaneous over phase
+                7's 9-frame kit and a 7-frame kit of the same avatar at
+                other seeded poses (the CasePool: padded to 9 frames, 6
+                lockstep steps, the frame streams of RandomState(seed +
+                7919 c), a validation at step 4 and the final checkpoint,
+                results and exports per case, the cases apart and
+                finite), 12 launches of each kernel in the pool's steps,
+                the device time of a lockstep step (CUDA events) and its
+                steps/s per case against phase 9's; then the CLI's
+                sequential mode (--shard 0/1) over both kits
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -1420,6 +1437,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     p, b, o = state
     terms = {name: [round(x, 6) for x in v.cpu().tolist()]
              for name, v in metrics.items()}
+    PHASE9_STEPS_PER_S[:] = [k / t for t in times]
     log(f"[train] 16 steps from step {TRAIN_STEP0}: chunk wall "
         f"{times[0]:.3f}s, {times[1]:.3f}s (host clock, steps/s "
         f"{k / times[0]:.3f}, {k / times[1]:.3f}), launches {launches}")
@@ -1498,9 +1516,12 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }
-    # ---- 11 the training entry point, 12 its timing
     del p, b, o, state, bargs, feats, binning, fwd_out, gout, entry
     del field_step
+    # ---- 18 multi-case training: the case step on this trainer, the
+    # pool and the sequential batch mode
+    run_cases(work, dev, smi, trainer, batches)
+    # ---- 11 the training entry point, 12 its timing
     return [bwd_row, gg_row] + run_entry(work, dev, trainer, batches, smi)
 
 
@@ -2322,6 +2343,374 @@ def profile_train(trainer, batches, bargs, bkw, field_step,
         log(f"[profile train] {line}")
     with open(os.path.join(out_dir, "profile_train.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# multi-case training (phase 18, on phase 7's trainer)
+
+# phase 9's steps/s per chunk in this run (the pool is compared with it)
+PHASE9_STEPS_PER_S = []
+# the two cases: phase 7's 9-frame kit and a 7-frame kit of the same
+# avatar at other seeded poses (padded to 9 frames by the pool)
+CASE_FRAMES = (9, 7)
+CASE_NAMES = ("kit9", "kit7")
+# the pool (phase 18.2): 6 lockstep steps after a 10-step pre-fit, a
+# validation at step 4, checkpoints, visualisation and animation only at
+# the end; 10 pose-refine steps a validation frame (the recipe's 60 cut)
+POOL_STEPS = 6
+POOL_DOTLIST = ["train.init_steps=10", f"train.num_steps={POOL_STEPS}",
+                "train.val_interval=4", "train.save_ckpt_interval=100000",
+                "train.viz_interval=100000", "train.anim_interval=100000",
+                "tpu.val_pose_refine_steps=10", "exp_name=smoke_cases"]
+POOL_EVENTS = ["000004", "final"]
+# the sequential mode (phase 18.3), shallower
+SEQ_DOTLIST = ["train.init_steps=10", "train.num_steps=2",
+               "train.val_interval=100000", "train.save_ckpt_interval=100000",
+               "train.viz_interval=100000", "train.anim_interval=100000",
+               "tpu.val_pose_refine_steps=10", "human.canon_nframes=4",
+               "exp_name=smoke_seq"]
+# the kernels a case step launches once per case
+CASE_KERNELS = ("composite_fwd", "composite_bwd", "triplane_bwd")
+
+
+def perturbed(tree):
+    """tests/test_dist.py's _perturb: x * 1.02 + 0.001 on float leaves."""
+    from sings_tpu_torch.tree import tree_map
+
+    return tree_map(lambda x: x * 1.02 + 0.001 if x.is_floating_point()
+                    else x, tree)
+
+
+def launch_counts() -> dict:
+    from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    return dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
+
+
+def reset_all_launches() -> None:
+    from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+
+    K.reset_launches()
+    GG.reset_launches()
+
+
+@torch.no_grad()
+def second_case_kit(trainer, frames: int = CASE_FRAMES[1]):
+    """A kit of the same avatar at other seeded poses: each frame's mask
+    its silhouette ((1 - T) > 0.5) and its image that render plus seeded
+    noise, as seed_train_targets makes phase 7's."""
+    from sings_tpu_torch.model.avatar import avatar_forward
+    from sings_tpu_torch.ops.rasterizer.api import rasterize
+    from sings_tpu_torch.train.step import sh_degree_mask
+
+    tr = trainer
+    dev = tr.device
+    kit = make_kit(frames, tr.camera.height)
+    rng = np.random.RandomState(SEED + 18)
+    smpl = dict(kit.smpl)
+    smpl["body_pose"] = (rng.randn(frames, 69) * 0.08).astype(np.float32)
+    smpl["transl"] = (smpl["transl"] + rng.randn(frames, 3) * 0.02).astype(
+        np.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    mask_deg = sh_degree_mask(tr.active_sh_degree, dev)
+    images = np.zeros_like(kit.images)
+    masks = np.zeros_like(kit.masks)
+    for f in range(frames):
+        out = avatar_forward(
+            tr.params, tr.buffers, tr.avatar_cfg, tr.template, tr.cache,
+            global_orient=torch.as_tensor(smpl["global_orient"][f],
+                                          device=dev),
+            body_pose=torch.as_tensor(smpl["body_pose"][f], device=dev),
+            betas=tr.params.betas,
+            transl=torch.as_tensor(smpl["transl"][f], device=dev),
+            smpl_scale=torch.ones(1, device=dev), eval_mode=True)
+        pkg = rasterize(out["xyz"], out["scales"], out["rotq"],
+                        out["opacity"][:, 0],
+                        out["shs"] * mask_deg[None, :, None], tr.camera,
+                        sh_degree=3, bg=torch.zeros(3, device=dev),
+                        alive=tr.buffers.alive > 0.5, **tr.raster_kw)
+        masks[f] = ((1.0 - pkg["transmittance"]) > 0.5).float().cpu()
+        noise = torch.randn(pkg["render"].shape, generator=gen, device=dev)
+        images[f] = torch.clamp(pkg["render"] + 0.05 * noise, 0, 1).cpu()
+    return kit._replace(smpl=smpl, images=images, masks=masks,
+                        name=CASE_NAMES[1])
+
+
+def expected_frames(seed: int, c: int, split: list, n: int) -> list:
+    """The frames case c of a pool draws: np.random.RandomState(seed +
+    7919 c)'s shuffles of the training split, reshuffled at each pass."""
+    rng = np.random.RandomState(seed + 7919 * c)
+    order = list(range(len(split)))
+    rng.shuffle(order)
+    out, cur = [], 0
+    for _ in range(n):
+        if cur >= len(order):
+            rng.shuffle(order)
+            cur = 0
+        out.append(int(split[order[cur]]))
+        cur += 1
+    return out
+
+
+def case_step_check(dev, trainer, batches) -> tuple:
+    """18.1: one make_case_train_step call on two cases (phase 7's state
+    and its perturbed copy, frames 0 and 1) against two single-card
+    train_step calls on the same draws, bit for bit; 2 launches of each
+    kernel from 0. Returns the case step's CUDA-event time and that of
+    the exact KNN statistic it computes once a case (ms)."""
+    from sings_tpu_torch.dist import train_cases as TCS
+    from sings_tpu_torch.losses.photometric import draw_step_randoms
+    from sings_tpu_torch.losses.regularizers import edge_stat
+    from sings_tpu_torch.model.avatar import get_canon_xyz
+    from sings_tpu_torch.tree import tree_leaves
+
+    tr = trainer
+    lpips = tr.lpips_params if float(tr.cfg.human.loss.lpips_w) > 0 else None
+    step_fn = TCS.make_case_train_step(
+        tr.avatar_cfg, tr.step_cfg, tr.template, tr.camera.height,
+        tr.camera.width, tr.tx, lpips, tr.raster_kw)
+    params = [tr.params, perturbed(tr.params)]
+    frames = [int(batches["idx"][c]) for c in range(2)]
+    batch = {"rgb": batches["rgb"][:2], "mask": batches["mask"][:2],
+             "idx": frames, "smpl_scale": batches["smpl_scale"][:2]}
+    pw = tr.step_cfg.weights.photometric
+    draws = [draw_step_randoms(
+        torch.Generator(device=dev).manual_seed(SEED + 180 + c),
+        batch["mask"][c], pw) for c in range(2)]
+    stacked = (TCS.stack_cases(params),
+               TCS.stack_cases([tr.buffers] * 2),
+               TCS.stack_cases([tr.opt_state] * 2),
+               TCS.stack_cases([tr.cache] * 2),
+               TCS.stack_cases([TCS.camera_arrays(tr.camera)] * 2))
+    lap = TCS.stack_cases([tr.region_lap] * 2)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    reset_all_launches()
+    torch.cuda.synchronize()
+    start.record()
+    cp, cb, co, cm = step_fn(*stacked, batch, [None, None], TRAIN_STEP0,
+                             tr.active_sh_degree, lap, lap, tr.lap_pos_w,
+                             tr.lap_color_w, draws=draws)
+    stop.record()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    case_ms = start.elapsed_time(stop)
+
+    def single(c):
+        frame = {k: v[c] for k, v in batch.items()}
+        return tr.train_step(params[c], tr.buffers, tr.opt_state, tr.cache,
+                             frame, None, TRAIN_STEP0, tr.active_sh_degree,
+                             tr.region_lap, tr.region_lap, tr.lap_pos_w,
+                             tr.lap_color_w, draws=draws[c])[:4]
+
+    diffs = []
+    for c in range(2):
+        p, b, o, m = single(c)
+        got = tree_leaves((cp, cb, co)) + [cm[k] for k in sorted(m)]
+        want = tree_leaves((p, b, o)) + [m[k] for k in sorted(m)]
+        if sorted(cm) != sorted(m):
+            raise AssertionError(f"case step metrics {sorted(cm)} against "
+                                 f"{sorted(m)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            g = g[c]
+            if not torch.equal(g, w):
+                diffs.append((c, i, float((g.double() - w.double()).abs()
+                                          .max())))
+        if not all(bool(torch.isfinite(x).all()) for x in want):
+            raise AssertionError(f"case {c}: a value is not finite")
+        if float(m["skipped"]) != 0.0:
+            raise AssertionError(f"case {c}: step skipped")
+    loss = [round(float(x), 6) for x in cm["loss"]]
+    log(f"[cases step] 2 cases at step {TRAIN_STEP0} (frames {frames}, the "
+        f"second case's params perturbed): losses {loss}, "
+        f"{len(tree_leaves((cp, cb, co)))} state leaves and {len(cm)} "
+        f"metrics a case against two train_step calls on the same draws: "
+        f"{len(diffs)} differ; launches {launches}; {case_ms:.3f} ms of "
+        "CUDA-event time")
+    if diffs:
+        p2 = single(0)
+        p1 = single(0)
+        rep = all(torch.equal(a, b_) for a, b_ in zip(tree_leaves(p1),
+                                                      tree_leaves(p2)))
+        raise AssertionError(f"the case step differs from the single-card "
+                             f"steps at (case, leaf, max abs) {diffs[:12]};"
+                             f" the single step repeats bit for bit: {rep}")
+    if loss[0] == loss[1]:
+        raise AssertionError("the two cases' losses are equal")
+    for name in CASE_KERNELS:
+        if launches[name] != 2:
+            raise AssertionError(f"case step: {name} launched "
+                                 f"{launches[name]} times, not 2")
+    with torch.no_grad():
+        xyz = get_canon_xyz(tr.params, tr.buffers, tr.avatar_cfg)
+    stat_ms = cuda_ms(lambda: edge_stat(xyz, tr.buffers.alive,
+                                        k=tr.step_cfg.knn_k), n=2, warm=1)
+    log(f"[cases step] the exact KNN statistic {stat_ms:.3f} ms a call "
+        f"(CUDA events), {2 * stat_ms / case_ms:.1%} of the case step")
+    return case_ms, stat_ms
+
+
+def run_cases(work: str, dev, smi: str, trainer, batches) -> None:
+    """Phase 18: 18.1 the case step on phase 7's trainer against the
+    single-card step; 18.2 python -m sings_tpu_torch.cli.train_batch
+    --simultaneous over phase 7's kit and a 7-frame kit (the CasePool);
+    18.3 the same CLI's sequential mode over both kits."""
+    from sings_tpu_torch.cli import train_batch
+    from sings_tpu_torch.tree import tree_leaves
+    from sings_tpu_torch.train import trainer_cases as TCP
+
+    t_phase = time.time()
+    # ---- 18.1 the case step against two single-card steps
+    case_ms, stat_ms = case_step_check(dev, trainer, batches)
+    t_step = time.time() - t_phase
+
+    # ---- 18.2 the simultaneous pool through the CLI
+    t1 = time.time()
+    kits = {CASE_NAMES[0]: make_train_kit()._replace(
+                images=trainer.images.cpu().numpy(),
+                masks=trainer.masks.cpu().numpy(), name=CASE_NAMES[0]),
+            CASE_NAMES[1]: second_case_kit(trainer)}
+    t_kits = time.time() - t1
+    opts = [x for x in train_dotlist(work, POOL_DOTLIST)
+            if not x.startswith("dataset.name=")]
+    pools, step_ms, step_wall, frames_drawn, validated = [], [], [], {}, {}
+    in_steps = {name: 0 for name in CASE_KERNELS}
+    orig_make, orig_train = TCP.make_case_train_step, TCP.CasePool.train
+
+    def timed_make(*a, **k):
+        fn = orig_make(*a, **k)
+
+        def step(*sa, **sk):
+            before = launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = fn(*sa, **sk)
+            stop.record()
+            torch.cuda.synchronize()
+            step_wall.append(time.perf_counter() - t)
+            step_ms.append(start.elapsed_time(stop))
+            after = launch_counts()
+            for name in CASE_KERNELS:
+                in_steps[name] += after[name] - before[name]
+            return out
+        return step
+
+    def recorded_train(pool):
+        pools.append(pool)
+        for c, t in enumerate(pool.trainers):
+            frames_drawn[c], validated[c] = [], []
+            orig_val = t.validate
+
+            def val(iter_s="final", _c=c, _v=orig_val):
+                validated[_c].append(iter_s)
+                return _v(iter_s)
+            t.validate = val
+        orig_next = pool._next_frame
+
+        def next_frame(c):
+            f = orig_next(c)
+            frames_drawn[c].append(f)
+            return f
+        pool._next_frame = next_frame
+        return orig_train(pool)
+
+    TCP.make_case_train_step = timed_make
+    TCP.CasePool.train = recorded_train
+    try:
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t2 = time.time()
+        results = train_batch.main(
+            ["--simultaneous", "--device", "cuda", *opts, "--cases",
+             *CASE_NAMES], kits=kits, image_writer=lambda path, img: None)
+        t_pool = time.time() - t2
+    finally:
+        TCP.make_case_train_step = orig_make
+        TCP.CasePool.train = orig_train
+    total = launch_counts()
+    pool = pools[0]
+    ta, tb = pool.trainers
+    wall = sum(step_wall)
+    log(f"[cases pool] {len(step_ms)} lockstep steps of 2 cases: device "
+        f"time a lockstep step {', '.join(f'{x:.3f}' for x in step_ms)} ms "
+        f"(CUDA events), host wall {', '.join(f'{x:.3f}' for x in step_wall)}"
+        f" s; {POOL_STEPS / wall:.3f} lockstep steps/s = steps/s per case "
+        f"({2 * POOL_STEPS / wall:.3f} case steps/s), phase 9 in this run "
+        f"{', '.join(f'{x:.3f}' for x in PHASE9_STEPS_PER_S)} steps/s; the "
+        f"exact statistic twice a lockstep step "
+        f"{2 * stat_ms / np.median(step_ms):.1%} of its median | {smi}")
+    log(f"[cases pool] launches in the pool's steps {in_steps}; in the whole"
+        f" CLI call (pre-fits, validations, exports) {total}; results "
+        f"{ {k: round(v['psnr'], 3) for k, v in results.items()} }")
+    if len(step_ms) != POOL_STEPS or pool.step != POOL_STEPS:
+        raise AssertionError(f"the pool ran {len(step_ms)} steps, not "
+                             f"{POOL_STEPS}")
+    for name in CASE_KERNELS:
+        if in_steps[name] != 2 * POOL_STEPS:
+            raise AssertionError(f"pool: {name} launched {in_steps[name]} "
+                                 f"times in {POOL_STEPS} lockstep steps of 2"
+                                 " cases")
+    for t in pool.trainers:
+        if t.params.body_pose.shape[0] != CASE_FRAMES[0]:
+            raise AssertionError(f"body_pose {tuple(t.params.body_pose.shape)}"
+                                 f" not padded to {CASE_FRAMES[0]} frames")
+    if len(tb.kit.images) != CASE_FRAMES[1]:
+        raise AssertionError("the 7-frame kit's images were padded")
+    for c, t in enumerate(pool.trainers):
+        want = expected_frames(SEED, c, t.kit.train_split, POOL_STEPS)
+        if frames_drawn[c] != want:
+            raise AssertionError(f"case {c} drew frames {frames_drawn[c]}, "
+                                 f"RandomState({SEED} + 7919 * {c}) gives "
+                                 f"{want}")
+        if validated[c] != POOL_EVENTS:
+            raise AssertionError(f"case {c} validated at {validated[c]}")
+        for f in ("ckpt/human_final.npz", "results_train.json",
+                  "config_train.yaml", "showcase.splat"):
+            if not os.path.exists(os.path.join(t.logdir, f)):
+                raise AssertionError(f"case {c}: no {f}")
+        if not all(bool(torch.isfinite(x).all())
+                   for x in tree_leaves(t.params)):
+            raise AssertionError(f"case {c}: a parameter is not finite")
+    if sorted(results) != sorted(CASE_NAMES):
+        raise AssertionError(f"pool results {sorted(results)}")
+    if torch.equal(ta.params.xyz, tb.params.xyz):
+        raise AssertionError("the two cases' xyz are equal")
+    log(f"[cases pool] frames drawn {frames_drawn} (the RandomState "
+        f"streams), validations {validated}, body_pose "
+        f"{tuple(ta.params.body_pose.shape)} in both, xyz apart by "
+        f"{float((ta.params.xyz - tb.params.xyz).abs().max()):.3e}")
+    del pools, pool, ta, tb
+    torch.cuda.empty_cache()
+
+    # ---- 18.3 the sequential mode over both kits
+    t3 = time.time()
+    opts = [x for x in train_dotlist(work, SEQ_DOTLIST)
+            if not x.startswith("dataset.name=")]
+    reset_all_launches()
+    seq = train_batch.main(["--device", "cuda", "--shard", "0/1", *opts,
+                            "--cases", *CASE_NAMES], kits=kits,
+                           image_writer=lambda path, img: None)
+    t_seq = time.time() - t3
+    seq_launches = launch_counts()
+    log(f"[cases sequential] results "
+        f"{ {k: round(v['psnr'], 3) for k, v in seq.items()} }, launches "
+        f"{seq_launches}")
+    if list(seq) != list(CASE_NAMES) or not all(
+            math.isfinite(v["psnr"]) for v in seq.values()):
+        raise AssertionError(f"sequential mode results {seq}")
+    for name in CASE_KERNELS:
+        # two training steps a case at least
+        if seq_launches[name] < 2 * len(CASE_NAMES) * 2:
+            raise AssertionError(f"sequential mode: {name} launched "
+                                 f"{seq_launches[name]} times")
+    log(f"[cases] stage walls: case step {t_step:.1f}s ({case_ms:.3f} ms of "
+        f"device time), kits {t_kits:.1f}s, pool CLI {t_pool:.1f}s "
+        f"(steps {wall:.1f}s), sequential CLI {t_seq:.1f}s; phase 18 "
+        f"{time.time() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ def _rot_z(angle: float) -> np.ndarray:
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
 
 
+def get_static_camera(img_size: int = 512, fov: float = 0.4,
+                      znear: float = 0.01, zfar: float = 100.0,
+                      device="cpu") -> Camera:
+    return make_camera(np.eye(4, dtype=np.float32), img_size, img_size,
+                       fovx=fov, fovy=fov, znear=znear, zfar=zfar,
+                       device=device)
+
+
 def get_rotating_cameras(img_size=512, fov: float = 0.4, dist: float = 5.0,
                          nframes: int = 40, angle_limit: float = 2 * math.pi,
                          znear: float = 0.01, zfar: float = 100.0,

@@ -30,6 +30,17 @@ def load_smpl_param(path: str) -> dict:
     }
 
 
+def scan_kit_frames(kit_dir: str, *, skip_first: int = 2,
+                    max_frames: int | None = None) -> int:
+    """Frame count load_kit() would produce, without decoding images
+    (the case pool sizes the shared per-frame parameter axis with it
+    before it builds any Trainer)."""
+    n = len(glob.glob(f"{kit_dir}/images/*.png")) - skip_first
+    if max_frames is not None:
+        n = min(n, int(max_frames))
+    return max(n, 0)
+
+
 def get_data_splits(num_frames: int):
     """Every ~10th frame (offset half-window) is validation."""
     num_val = max(num_frames // 10, 1)

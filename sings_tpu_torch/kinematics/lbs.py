@@ -25,6 +25,11 @@ def vertices2joints(j_regressor: torch.Tensor, vertices: torch.Tensor):
     return torch.einsum("jv,bvc->bjc", j_regressor, vertices)
 
 
+def batch_rodrigues(pose: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3)."""
+    return axis_angle_to_matrix(pose)
+
+
 def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
                           parents: np.ndarray):
     """Kinematic-chain forward. rot_mats (B, J, 3, 3), joints (B, J, 3),

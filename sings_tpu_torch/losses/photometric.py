@@ -96,6 +96,24 @@ def crop_patches(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return img[:, rows, cols].permute(1, 0, 2, 3)
 
 
+def sample_patches(generator: torch.Generator, mask: torch.Tensor,
+                   images: tuple, *, num_patches: int = 4,
+                   patch_size: int = 128, ratio_mask: float = 0.9,
+                   corners=None) -> tuple:
+    """Aligned square patches, mostly centred inside the mask, in one
+    call (the JAX package's form): corners from draw_patch_corners (or
+    the given (ys, xs)), then crop_patches of each image. mask (H, W);
+    images (C, H, W) each. Returns per input a stacked
+    (num_patches, C, patch_size, patch_size)."""
+    if corners is None:
+        corners = draw_patch_corners(generator, mask,
+                                     num_patches=num_patches,
+                                     patch_size=patch_size,
+                                     ratio_mask=ratio_mask)
+    ys, xs = corners
+    return tuple(crop_patches(img, ys, xs, patch_size) for img in images)
+
+
 def grad_pyramid_distance(pred: torch.Tensor, gt: torch.Tensor,
                           levels: int = 3) -> torch.Tensor:
     """L1 between finite-difference image gradients over a pyramid of

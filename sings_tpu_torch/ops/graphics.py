@@ -62,6 +62,14 @@ def projection_matrix_center(znear, zfar, fx, fy, cx, cy, width,
     return P
 
 
+def fov2focal(fov, pixels):
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal, pixels):
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def make_camera(
     extrinsic_w2c: np.ndarray,
     height: int,

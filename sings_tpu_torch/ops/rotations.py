@@ -37,6 +37,11 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quaternion_apply(quat: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) points by (..., 4) quaternions."""
+    return (quaternion_to_matrix(quat) @ point[..., None])[..., 0]
+
+
 def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> (..., 4) scalar-first quaternion (largest-pivot
     candidate, branch-free)."""

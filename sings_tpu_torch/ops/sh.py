@@ -56,3 +56,7 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
+
+
+def sh2rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5

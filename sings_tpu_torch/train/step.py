@@ -91,21 +91,24 @@ def _zeros_for_none(grads, leaves):
 
 
 def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
-                    template, camera: Camera, tx,
+                    template, camera: Camera | None, tx,
                     lpips_params: LPIPSParams | None, raster_kw: dict):
     """Build the step. tx: train.optim.Optimizer. lpips_params: the
     LPIPS network (losses/lpips.py), or None for no LPIPS term.
 
     step(params, buffers, opt_state, cache, batch, generator, step,
          active_sh_degree, region_lap_pos, region_lap_color, lap_pos_w,
-         lap_color_w, edge_stat=None, draws=None)
+         lap_color_w, edge_stat=None, draws=None, camera=None)
       -> (params, buffers, opt_state, metrics, render)
 
     batch: 'rgb' (3, H, W), 'mask' (H, W), 'idx' (int or 0-d tensor),
     optional 'smpl_scale'. draws: the output of draw_step_randoms, or
-    None to draw from `generator`. metrics are 0-d tensors on the device.
+    None to draw from `generator`. camera: this call's Camera, or None
+    for the one the step was built with (the case step passes each
+    case's). metrics are 0-d tensors on the device.
     """
     w = step_cfg.weights
+    built_camera = camera
     lpips_fn = None
     if lpips_params is not None:
         def lpips_fn(a, b):
@@ -115,8 +118,9 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                    batch: dict, generator, step: int, active_sh_degree: int,
                    region_lap_pos: RegionLaplacian,
                    region_lap_color: RegionLaplacian, lap_pos_w, lap_color_w,
-                   edge_stat=None, draws=None):
+                   edge_stat=None, draws=None, camera=None):
         dev = buffers.alive.device
+        cam = built_camera if camera is None else camera
         if draws is None:
             draws = draw_step_randoms(generator, batch["mask"],
                                       w.photometric)
@@ -138,7 +142,7 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
 
         shs = out["shs"] * deg_mask[None, :, None]
         pkg = rasterize(out["xyz"], out["scales"], out["rotq"],
-                        out["opacity"][:, 0], shs, camera, sh_degree=3,
+                        out["opacity"][:, 0], shs, cam, sh_degree=3,
                         bg=bg, alive=buffers.alive > 0.5, screen_probe=probe,
                         backend="pallas", **raster_kw)
         # no clamp: the losses read the raw render

@@ -1,0 +1,264 @@
+"""Simultaneous multi-case training pool (port of
+sings_tpu/train/trainer_cases.py, on one card).
+
+C independent avatar cases train in lockstep: one call of the case step
+(dist/train_cases.py) updates every case, while the host-side work
+(frame sampling, periodic checkpoint / validation / visualisation,
+density control, laplacian rebuilds) runs per case between calls with
+the single-case Trainer's semantics: the pool owns one Trainer per case
+and unstacks the stacked state into them only at event steps. The JAX
+package runs the cases over a (case, gs) device mesh; the port runs
+them one after another on the one card (gs = 1).
+
+Requirements across cases (checked): the same recipe (schedules, loss
+weights), image resolution, body template and capacity. Frame counts
+may differ: the per-frame pose parameters are padded to the longest
+case (dataset.pad_frames_to, set here before any Trainer is built, so
+checkpoints keep their shapes).
+
+Deviations from the JAX signatures:
+  * CasePool(cfgs, gs=1, device=None, kits=None, image_writer=None)
+    takes the device, optional in-memory kits (one per config) and the
+    image sink, as Trainer does;
+  * the step draws come from one torch.Generator per case, seeded from
+    the case's seed and its index (JAX folds the case index into one
+    pool key);
+  * laplacian.type cotangent and tpu.laplacian_backend banded raise
+    (JAX's pool fails there too: its stacking reads the gather tables),
+    and gs > 1 raises until the gs axis is ported.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..dist.train_cases import (
+    GS_TODO, camera_arrays, make_case_train_step, pick_case, shard_cases,
+    stack_cases,
+)
+
+# the frame streams' seed stride between cases (JAX's)
+CASE_SEED_STRIDE = 7919
+
+
+def case_frame_count(cfg, kit=None) -> int:
+    """The frame count a case's Trainer will see: an in-memory kit's
+    frames, else the kit directory's (scan_kit_frames), both cut to
+    dataset.max_frames."""
+    from ..data.kit import scan_kit_frames
+
+    max_frames = cfg.dataset.get("max_frames")
+    if kit is None:
+        kit_dir = os.path.normpath(os.path.join(
+            cfg.dataset.root_dir, cfg.dataset.batch or "", cfg.dataset.name,
+            cfg.dataset.seq or ""))
+        return scan_kit_frames(kit_dir, max_frames=max_frames)
+    n = int(np.asarray(kit.smpl["body_pose"]).shape[0])
+    return n if max_frames is None else min(n, int(max_frames))
+
+
+def check_case_cfg(cfg, gs: int) -> None:
+    """What the pool cannot run, refused before any Trainer is built."""
+    if gs != 1:
+        raise NotImplementedError(f"gs={gs}: {GS_TODO}")
+    mesh = dict(cfg.tpu.get("mesh", {}) or {})
+    if int(mesh.get("dp", 1) or 1) * int(mesh.get("gs", 1) or 1) > 1:
+        raise ValueError("tpu.mesh and simultaneous cases are exclusive - "
+                         "the pool lays out the cases itself")
+    lap_type = str(cfg.human.loss.laplacian.type)
+    backend = str(cfg.tpu.get("laplacian_backend", "auto"))
+    if lap_type == "cotangent" or backend == "banded":
+        raise NotImplementedError(
+            f"laplacian.type={lap_type!r}, tpu.laplacian_backend="
+            f"{backend!r}: the case pool stacks the standard gather "
+            "laplacian's tables only; the JAX package's pool fails here "
+            "too (_unify_laps reads region_lap.neighbors, which the banded "
+            "laplacian lacks; shard_region_laplacian reads nbr_valid, "
+            "which the cotangent one lacks)")
+
+
+class CasePool:
+    def __init__(self, cfgs: list, gs: int = 1, device=None,
+                 kits: list | None = None, image_writer=None):
+        from .trainer import Trainer
+
+        if not cfgs:
+            raise ValueError("need at least one case config")
+        kits = list(kits) if kits is not None else [None] * len(cfgs)
+        if len(kits) != len(cfgs):
+            raise ValueError(f"{len(kits)} kits for {len(cfgs)} cases")
+        for cfg in cfgs:
+            check_case_cfg(cfg, gs)
+        # size the shared per-frame parameter axis before building any
+        # Trainer, so checkpoint shapes are stable across runs
+        f_max = max(case_frame_count(cfg, kit)
+                    for cfg, kit in zip(cfgs, kits))
+        for cfg in cfgs:
+            cfg.dataset.pad_frames_to = int(f_max)
+
+        self.trainers = [Trainer(cfg, mode="train", device=device, kit=kit,
+                                 image_writer=image_writer)
+                         for cfg, kit in zip(cfgs, kits)]
+        t0 = self.trainers[0]
+        self.device = t0.device
+        for t in self.trainers[1:]:
+            if (t.camera.height, t.camera.width) != (t0.camera.height,
+                                                     t0.camera.width):
+                raise ValueError("all cases must share one image resolution "
+                                 "(use dataset.downscale)")
+            if t.avatar_cfg != t0.avatar_cfg:
+                raise ValueError("cases disagree on AvatarConfig (body "
+                                 "template / capacity / recipe must match)")
+            if t.step_cfg != t0.step_cfg:
+                raise ValueError("cases disagree on recipe")
+            if int(t.cfg.train.num_steps) != int(t0.cfg.train.num_steps):
+                raise ValueError("cases disagree on train.num_steps")
+            np.testing.assert_allclose(t.lap_pos_w.cpu().numpy(),
+                                       t0.lap_pos_w.cpu().numpy())
+            np.testing.assert_allclose(t.lap_color_w.cpu().numpy(),
+                                       t0.lap_color_w.cpu().numpy())
+
+        lpips = (t0.lpips_params
+                 if float(t0.cfg.human.loss.lpips_w) > 0 else None)
+        self.step_fn = make_case_train_step(
+            t0.avatar_cfg, t0.step_cfg, t0.template, t0.camera.height,
+            t0.camera.width, t0.tx, lpips, t0.raster_kw, gs=gs)
+        self.gs = gs
+        # one step generator per case: cases that share a seed draw apart
+        self.generators = [
+            torch.Generator(device=self.device).manual_seed(
+                int(t.cfg.seed) + CASE_SEED_STRIDE * c)
+            for c, t in enumerate(self.trainers)]
+        self.active_sh_degree = min(t.active_sh_degree for t in self.trainers)
+        self.step = min(t.step for t in self.trainers)
+
+        # static per-case inputs
+        self._cams = shard_cases(stack_cases(
+            [camera_arrays(t.camera) for t in self.trainers]), self.device)
+        self._caches = shard_cases(stack_cases(
+            [t.cache for t in self.trainers]), self.device)
+
+        self._unify_laps()
+        self._stack_state()
+
+        self._init_frame_streams()
+
+    # ------------------------------------------------------------------
+    def _init_frame_streams(self):
+        """Per-case frame shuffles (the single-case Trainer has its own
+        random.Random; the pool needs independent streams)."""
+        self._frame_rand = [
+            np.random.RandomState(int(t.cfg.seed) + CASE_SEED_STRIDE * c)
+            for c, t in enumerate(self.trainers)]
+        self._orders = [list(range(len(t.kit.train_split)))
+                        for t in self.trainers]
+        for r, o in zip(self._frame_rand, self._orders):
+            r.shuffle(o)
+        self._cursors = [0] * len(self.trainers)
+
+    def _unify_laps(self):
+        """All cases share one laplacian neighbour-table width (the
+        stacked tables are one tensor)."""
+        w = max(t.region_lap.neighbors.shape[1] for t in self.trainers)
+        for t in self.trainers:
+            if t.region_lap.neighbors.shape[1] != w:
+                t._lap_pad = w
+                t._rebuild_laplacians()
+
+    def _stack_state(self):
+        ts = self.trainers
+
+        def sc(xs):
+            return shard_cases(stack_cases(xs), self.device)
+
+        self._params = sc([t.params for t in ts])
+        self._buffers = sc([t.buffers for t in ts])
+        self._opt = sc([t.opt_state for t in ts])
+        self._rlap = sc([t.region_lap for t in ts])
+
+    def _unstack_state(self, t_iter: int):
+        for c, t in enumerate(self.trainers):
+            t.params = pick_case(self._params, c)
+            t.buffers = pick_case(self._buffers, c)
+            t.opt_state = pick_case(self._opt, c)
+            t.step = t_iter
+            t.active_sh_degree = self.active_sh_degree
+
+    def _next_frame(self, c: int) -> int:
+        if self._cursors[c] >= len(self._orders[c]):
+            self._frame_rand[c].shuffle(self._orders[c])
+            self._cursors[c] = 0
+        t = self.trainers[c]
+        frame = t.kit.train_split[self._orders[c][self._cursors[c]]]
+        self._cursors[c] += 1
+        return int(frame)
+
+    # ------------------------------------------------------------------
+    def train(self):
+        ts = self.trainers
+        t0 = ts[0]
+        num_steps = int(t0.cfg.train.num_steps)
+        names = [t.kit.name for t in ts]
+        print(f"[pool] {len(ts)} cases {names} on one device (case="
+              f"{len(ts)}, gs={self.gs}), one case step after another")
+        log_every, steps_since_log, tlog = 50, 0, time.time()
+
+        while self.step < num_steps:
+            t_iter = self.step
+            frames = [self._next_frame(c) for c in range(len(ts))]
+            batch = {
+                "rgb": torch.stack([t.images[f] for t, f in zip(ts, frames)]),
+                "mask": torch.stack([t.masks[f]
+                                     for t, f in zip(ts, frames)]),
+                "idx": frames,
+                "smpl_scale": torch.ones((len(ts), 1), device=self.device),
+            }
+            (self._params, self._buffers, self._opt,
+             metrics) = self.step_fn(
+                self._params, self._buffers, self._opt, self._caches,
+                self._cams, batch, self.generators, t_iter,
+                self.active_sh_degree, self._rlap, self._rlap,
+                t0.lap_pos_w, t0.lap_color_w)
+
+            skipped = metrics["skipped"].cpu().numpy()
+            if skipped.any():
+                bad = [n for n, s in zip(names, skipped) if s > 0]
+                print(f"[{t_iter}] WARNING: non-finite gradients, update "
+                      f"skipped for {bad}")
+
+            steps_since_log += 1
+            if steps_since_log >= log_every:
+                losses = metrics["loss"].cpu().numpy().round(4).tolist()
+                n_gs = self._buffers.alive.sum(dim=1).cpu().numpy().astype(
+                    int).tolist()
+                dt = time.time() - tlog
+                print(f"[{t_iter:6d}] losses={losses} n_gs={n_gs} "
+                      f"({steps_since_log / max(dt, 1e-9):.2f} it/s)",
+                      flush=True)
+                tlog, steps_since_log = time.time(), 0
+
+            if any(t._is_event(t_iter) for t in ts):
+                self._unstack_state(t_iter)
+                for t in ts:
+                    t._periodic_check(t_iter, None)
+                    t._adjust_density(t_iter)
+                # one SH schedule for the pool (the rule of
+                # Trainer._periodic_check)
+                if (t_iter % 1000 == 0 and t_iter > 0
+                        and self.active_sh_degree < t0.cfg.human.sh_degree):
+                    self.active_sh_degree += 1
+                self._unify_laps()
+                self._stack_state()
+            self.step += 1
+
+        self._unstack_state(num_steps)
+        results = {}
+        for c, t in enumerate(ts):
+            t.save_ckpt("final")
+            key = t.kit.name if t.kit.name not in results else (
+                f"{t.kit.name}#{c}")
+            results[key] = t.validate("final")
+        return results

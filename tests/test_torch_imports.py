@@ -61,7 +61,10 @@ def test_port_imports_neither_jax_nor_sings_tpu():
                  "sings_tpu_torch.ops.bilinear",
                  "sings_tpu_torch.ops.clip",
                  "sings_tpu_torch.ops.profiling",
-                 "sings_tpu_torch.ops.rasterizer.multi"):
+                 "sings_tpu_torch.ops.rasterizer.multi",
+                 "sings_tpu_torch.dist.train_cases",
+                 "sings_tpu_torch.train.trainer_cases",
+                 "sings_tpu_torch.cli.train_batch"):
         assert importlib.util.find_spec(name) is not None, name
 
 
@@ -84,6 +87,12 @@ def test_entry_points_default_to_cuda(tmp_path):
         train_main([f"output_path={tmp_path}"])
     with pytest.raises(RuntimeError, match="CUDA"):
         refine_main(["--kit", str(tmp_path)])
+    from sings_tpu_torch.cli.train_batch import main as batch_main
+
+    for mode in ([], ["--simultaneous"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            batch_main(["--cases", "a", "b", f"output_path={tmp_path}"]
+                       + mode)
     from sings_tpu_torch.scripts import (
         exp_bwd_moments, exp_bwd_variants, exp_cumsum_kernel,
     )
