@@ -13,7 +13,10 @@ weights made from seed 0: the animation render,
 Trainer(cfg, mode="anim").animate_chunk, in both raster layouts; the
 training step, Trainer(cfg, mode="train").train_scan, as bench.py's
 recipe benchmark drives it (8 steps a chunk); multi-case training,
-python -m sings_tpu_torch.cli.train_batch in both modes; and the
+python -m sings_tpu_torch.cli.train_batch in both modes; the sharded
+(dp, gs) step of sings_tpu_torch/dist on one rank over NCCL and on two
+ranks sharing the card over gloo, with python -m
+sings_tpu_torch.cli.train under tpu.mesh.gs=2; and the
 training entry point, python -m sings_tpu_torch.cli.train
 (cli.train.main with the kit held in memory) with
 tpu.raster.layout=panel, resumed from a checkpoint; the synthetic-template calibration that a default training
@@ -180,6 +183,34 @@ exp_bwd_variants} at their own sizes. Phases:
                 the device time of a lockstep step (CUDA events) and its
                 steps/s per case against phase 9's; then the CLI's
                 sequential mode (--shard 0/1) over both kits
+ 19 sharded    (run after phase 18, on phase 7's trainer) the sharded
+                (dp, gs) step of dist/: 19.1 frame 0 rendered strip by
+                strip through camera_strip (rasterize(valid_rows=) for
+                balanced windows) at gs 2 and 4 and balanced gs 4 from the
+                kit's masks, max_span raised to the frame's widest tile
+                rectangle and no pair_cap so that strips and the full frame
+                bin the same pairs (pair counts printed), each strip's
+                and the full frame's composite kernels against their plain
+                versions (check_fwd, check_bwd), the owned rows and the
+                gradients summed over the strips against the full frame's,
+                every flipped value at a pixel with a gaussian on the
+                1/255 alpha skip, the plain composites' strips beside the
+                kernels'; 19.2 a one-rank
+                process group over NCCL: make_sharded_train_step at (1, 1)
+                against phase 7's train_step on the same draws at
+                tests/test_dist.py's tolerances, both timed in turns (CUDA
+                events), one launch of each kernel; 19.3 two ranks spawned
+                on the one card over gloo (host-staged), from the parent's
+                saved state: the step at (dp 1, gs 2) against 19.2 (loss
+                rtol 5e-4, gradients 0.05 of the leaf scale), a rerun and
+                the two ranks' states bit for bit, one launch of each
+                kernel per rank, CUDA-event step times and the host time in
+                the collectives; the case step at gs 2 on two cases bit for
+                bit each case's sharded step; then cli.train.main with
+                tpu.mesh.gs=2 --dist-backend gloo from torchrun's
+                environment: a 10-step pre-fit and 4 steps through a prune
+                (removing nothing), a densify and a checkpoint, rank 0
+                alone writing, the ranks' final states bit for bit
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -897,6 +928,8 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     for row in kernels:
         if row["name"] in KERNEL_ERRS:
             row["max_abs_err"] = KERNEL_ERRS[row["name"]]
+        if row["name"] in SHARD_LAUNCHES:
+            row["launches_sharded"] = SHARD_LAUNCHES[row["name"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1183,10 +1216,13 @@ def step_render_inputs(trainer, batch, draws):
     return leaves, loss_of
 
 
-def composite_bwd_inputs(trainer, leaves, loss_of):
+def composite_bwd_inputs(trainer, leaves, loss_of, cam=None,
+                         raster_kw=None, valid_rows=None):
     """Frame 0's composite_bwd inputs as the step makes them: feats,
     binning, forward output and window-entry state of the render, and
-    the loss's own cotangents of colour and transmittance, re-tiled."""
+    the loss's own cotangents of colour and transmittance, re-tiled.
+    cam, raster_kw, valid_rows: another camera (a strip's), its raster
+    keywords and owned rows, for the trainer's."""
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer.api import (
         RasterConfig, _pad_tiles, image_to_tiles, prepare_composite,
@@ -1194,15 +1230,17 @@ def composite_bwd_inputs(trainer, leaves, loss_of):
     )
     from sings_tpu_torch.ops.rasterizer.common import preprocess
 
-    cam = trainer.camera
-    rkw = {k: trainer.raster_kw[k] for k in (
+    cam = trainer.camera if cam is None else cam
+    kw = trainer.raster_kw if raster_kw is None else raster_kw
+    rkw = {k: kw[k] for k in (
         "tile", "chunk", "max_span", "max_pairs", "main_width",
         "tail_capacity", "pair_cap")}
-    cfg = RasterConfig(height=cam.height, width=cam.width, **rkw)
+    cfg = RasterConfig(height=cam.height, width=cam.width,
+                       row_limit=valid_rows is not None, **rkw)
     with torch.no_grad():
         g2d = preprocess(*[x.detach() for x in leaves[:5]], cam, sh_degree=3,
                          alive=trainer.buffers.alive > 0.5, tile=cfg.tile)
-        feats, binning = prepare_composite(g2d, cfg)
+        feats, binning = prepare_composite(g2d, cfg, valid_rows)
     ntx, nty = _pad_tiles(cfg)
     ckw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx, n_tiles_y=nty)
     fwd_out, state = K.composite_fwd_cuda(
@@ -1521,6 +1559,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     # ---- 18 multi-case training: the case step on this trainer, the
     # pool and the sequential batch mode
     run_cases(work, dev, smi, trainer, batches)
+    # ---- 19 the sharded (dp, gs) step on this trainer
+    run_sharded(work, dev, smi, trainer, batches)
     # ---- 11 the training entry point, 12 its timing
     return [bwd_row, gg_row] + run_entry(work, dev, trainer, batches, smi)
 
@@ -2710,6 +2750,724 @@ def run_cases(work: str, dev, smi: str, trainer, batches) -> None:
     log(f"[cases] stage walls: case step {t_step:.1f}s ({case_ms:.3f} ms of "
         f"device time), kits {t_kits:.1f}s, pool CLI {t_pool:.1f}s "
         f"(steps {wall:.1f}s), sequential CLI {t_seq:.1f}s; phase 18 "
+        f"{time.time() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# the sharded (dp, gs) step (phase 19, on phase 7's trainer)
+
+# 19.1 strips against the full frame. Each strip and the full frame (at
+# the strips' raster keywords) pass check_fwd and check_bwd: the kernels
+# against their plain versions on that binning, at the rasterizer's own
+# ATOL and flip allowance. The owned rows against the full render at
+# tests/test_dist.py:34's atol 2e-4, where a value over it is allowed
+# only at a pixel that the cause explains: a strip camera's pixel
+# coordinates round an ulp apart from the full frame's, so a pair whose
+# alpha sits within rounding of the 1/255 skip (ALPHA_MIN) is composited
+# in one and skipped in the other. Such a pixel holds a gaussian whose
+# alpha in the two cameras lies on both sides of ALPHA_MIN, or within
+# SKIP_REL of it (the walk's arithmetic, recomputed), and one flip moves
+# it by at most T alpha (|c| + max |C|) <= 2 ALPHA_MIN max(1, max |c|)
+# a flip (the gaussian's own term, and the pairs behind it rescaled by
+# 1 / (1 - alpha)). The plain composites render the same strips: their
+# flips are printed beside the kernels'. At most STRIP_FLIP_FRACTION of the owned
+# values flip (about 4x the most seen: 18 of 786,432 at balanced gs 4 on
+# the NVIDIA H100, each at a pixel with one gaussian on the skip, and the
+# plain composites flipped the same pixels by the same amounts). The
+# gradients summed over the strips at tests/test_dist.py:200's tolerance
+# for strips against the full frame (GS2_GRAD_TOL below); beside it, the
+# values over the rasterizer's BWD_RTOL of the leaf's scale, for the
+# kernels and for the plain composites: the kernels may flag no more
+# values that the plain composites do not than the backward's own flip
+# allowance (MAX_BWD_FLIP_FRACTION). The strip layouts: equal strips at
+# gs 2 and 4, and balanced_strip_bounds from the kit's masks at gs 4
+STRIP_ATOL = 2e-4
+SKIP_REL = 1e-6
+STRIP_FLIP_FRACTION = 1e-4
+STRIP_LAYOUTS = (("gs 2", 2, False), ("gs 4", 4, False),
+                 ("balanced gs 4", 4, True))
+# 19.2 the sharded step at world size 1 against the single-card step:
+# tests/test_dist.py's (1, 1) tolerances
+SHARD_METRIC_RTOL, SHARD_METRIC_ATOL = 2e-4, 1e-7
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL_REL = 1e-3, 1e-4
+SHARD_METRICS = ("loss", "photo", "reg_l2", "mesh_edge", "connect",
+                 "lap_pos", "lap_color", "photo_l1", "photo_ssim",
+                 "photo_sil", "skipped")
+# 19.3 two ranks (gs 2) against world size 1: the loss at rtol 5e-4, the
+# gradients at tests/test_dist.py:200's 0.05 (reassociation and T_EPS
+# flips of deeply occluded gaussians)
+GS2_LOSS_RTOL, GS2_GRAD_TOL = 5e-4, 0.05
+# the CLI under tpu.mesh.gs=2: a 10-step pre-fit, then 4 steps with a
+# prune at 1 (an event that removes nothing here: no splat is under the
+# recipe's scale threshold), a densify at 2 that adds splats and a
+# checkpoint at 3
+SHARD_CLI_DOTLIST = [
+    "train.num_steps=4", "train.init_steps=10", "train.val_interval=100000",
+    "train.viz_interval=100000", "train.anim_interval=100000",
+    "train.save_ckpt_interval=3", "tpu.val_pose_refine_steps=0",
+    "human.canon_nframes=2", "anim_cfg_path=", "tpu.mesh.gs=2",
+    "human.density_control.hybrid.prune_from_iter=1",
+    "human.density_control.hybrid.prune_interval=100",
+    "human.density_control.hybrid.densify_from_iter=2",
+    "human.density_control.hybrid.densify_interval=100",
+    "human.density_control.hybrid.densify_grad_threshold=0.0",
+    "exp_name=smoke_shard"]
+SHARD_KERNELS = ("composite_fwd", "composite_bwd", "triplane_bwd")
+# each kernel's launches in one sharded step on one rank of 19.3 (the
+# kernels line's launches_sharded)
+SHARD_LAUNCHES = {}
+
+
+class KeepGrads:
+    """SGD at learning rate 1 that keeps the gradients in its state
+    (train/optim.py's interface): the steps' gradients compared as
+    computed."""
+
+    def init(self, params):
+        from sings_tpu_torch.tree import tree_map
+
+        return {"g": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params):
+        from sings_tpu_torch.tree import tree_map
+
+        return tree_map(lambda p, g: p - g, params, grads), {"g": grads}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def strip_inputs(trainer, batch):
+    """Phase 7's frame gaussians as rasterize's leaves (screen_probe
+    last), and the keywords under which strips and the full frame bin
+    the same pairs (tests/test_dist.py::_sharded_setup's rule): max_span
+    the frame's widest tile rectangle, main_width its square, no
+    pair_cap."""
+    from sings_tpu_torch.model.avatar import avatar_forward
+    from sings_tpu_torch.ops.rasterizer.common import preprocess, tile_rect
+    from sings_tpu_torch.train.step import sh_degree_mask
+
+    cam = trainer.camera
+    with torch.no_grad():
+        out = avatar_forward(trainer.params, trainer.buffers,
+                             trainer.avatar_cfg, trainer.template,
+                             trainer.cache, dataset_idx=batch["idx"],
+                             smpl_scale=batch["smpl_scale"])
+        mask_deg = sh_degree_mask(trainer.active_sh_degree, trainer.device)
+        leaves = [out["xyz"], out["scales"], out["rotq"],
+                  out["opacity"][:, 0], out["shs"] * mask_deg[None, :, None]]
+        tile = trainer.raster_kw["tile"]
+        g2d = preprocess(*leaves, cam, sh_degree=3,
+                         alive=trainer.buffers.alive > 0.5, tile=tile)
+        x0, y0, x1, y1 = tile_rect(g2d, tile, -(-cam.width // tile),
+                                   -(-cam.height // tile))
+        span = int(max(int((x1 - x0).max()), int((y1 - y0).max()), 1))
+    kw = dict(trainer.raster_kw, max_span=span, main_width=span * span,
+              pair_cap=None, layout="tiled")
+    leaves.append(torch.zeros((leaves[0].shape[0], 2), device=cam.view.device))
+    return [x.detach().clone().requires_grad_(True) for x in leaves], kw
+
+
+def strip_bounds_of(trainer, n_gs: int, balanced: bool):
+    from sings_tpu_torch.dist.shard import balanced_strip_bounds
+
+    h = trainer.camera.height
+    if not balanced:
+        return np.arange(n_gs + 1) * (h // n_gs), h // n_gs
+    return balanced_strip_bounds(trainer.masks.sum(dim=(0, 2)).cpu().numpy(),
+                                 n_gs, tile=trainer.raster_kw["tile"])
+
+
+def skip_flips(leaves, alive, tile: int, cam, strip, y0: int, pix):
+    """At full-frame pixels pix ((P, 2) x, y) that the strip camera
+    `strip` (row offset y0) owns: the number of gaussians whose alpha in
+    the two cameras lies on both sides of ALPHA_MIN or within SKIP_REL
+    of it, with the plain walk's arithmetic (tile-local coordinates, exp
+    in float64), and the largest |colour|."""
+    from sings_tpu_torch.ops.rasterizer.common import preprocess
+    from sings_tpu_torch.ops.rasterizer.kernels import ALPHA_MIN
+
+    with torch.no_grad():
+        g = [preprocess(*[x.detach() for x in leaves[:5]], c, sh_degree=3,
+                        alive=alive, tile=tile) for c in (cam, strip)]
+        counts = []
+        for part in pix.split(64):
+            alphas = []
+            for gi, off in zip(g, (0, y0)):
+                x = part[:, 0].to(torch.float32)
+                y = (part[:, 1] - off).to(torch.float32)
+                ox, oy = (torch.floor(x / tile) * tile,
+                          torch.floor(y / tile) * tile)
+                dx = (gi.means2d[None, :, 0] - ox[:, None]) - (x - ox)[:, None]
+                dy = (gi.means2d[None, :, 1] - oy[:, None]) - (y - oy)[:, None]
+                ca, cb, cc = (gi.conics[None, :, k] for k in range(3))
+                power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+                al = torch.clamp_max(gi.opacities[None] * torch.exp(
+                    power.double()).float(), 0.99)
+                alphas.append(torch.where((power > 0) | ~alive[None],
+                                          torch.zeros_like(al), al))
+            lo = torch.minimum(*alphas)
+            hi = torch.maximum(*alphas)
+            counts.append(((lo <= ALPHA_MIN * (1 + SKIP_REL))
+                           & (hi >= ALPHA_MIN * (1 - SKIP_REL))).sum(1))
+        cmax = float(torch.maximum(g[0].colors.abs().max(),
+                                   g[1].colors.abs().max()))
+    return torch.cat(counts), cmax
+
+
+def check_strips(trainer, batch) -> dict:
+    """19.1: each strip layout rendered strip by strip through
+    camera_strip (and valid_rows for balanced windows) against the full
+    frame, forward and backward through the composite kernels: every
+    strip's and the full frame's kernels against their plain versions
+    (check_fwd, check_bwd), the owned rows with every value over
+    STRIP_ATOL explained by an alpha-skip flip (skip_flips), the pairs
+    binned, and the gradients of a seeded weighted sum of render and
+    transmittance summed over the strips (the probe's y rescaled by H /
+    window height, as the sharded step does); the plain composites'
+    strips beside them. Returns the raster keywords."""
+    from sings_tpu_torch.dist.shard import camera_strip
+    from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer.api import (
+        RasterConfig, prepare_composite, rasterize,
+    )
+    from sings_tpu_torch.ops.rasterizer.common import preprocess
+    from sings_tpu_torch.ops.rasterizer.kernels import ALPHA_MIN
+
+    dev = trainer.device
+    cam = trainer.camera
+    hh, ww = cam.height, cam.width
+    leaves, kw = strip_inputs(trainer, batch)
+    alive = trainer.buffers.alive > 0.5
+    bg = torch.zeros(3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 191)
+    w_img = torch.rand((3, hh, ww), generator=gen, device=dev)
+    w_t = torch.rand((hh, ww), generator=gen, device=dev)
+    rkw = {k: kw[k] for k in ("tile", "chunk", "max_span", "max_pairs",
+                              "main_width", "tail_capacity", "pair_cap")}
+
+    def pairs(c, valid_rows=None):
+        with torch.no_grad():
+            g2d = preprocess(*[x.detach() for x in leaves[:5]], c,
+                             sh_degree=3, alive=alive, tile=kw["tile"])
+            cfg = RasterConfig(height=c.height, width=c.width,
+                               row_limit=valid_rows is not None, **rkw)
+            return int(prepare_composite(g2d, cfg, valid_rows)[1].num_pairs)
+
+    def loss_of(y0, y1):
+        def f(color, t):
+            return (color[:, : y1 - y0] * w_img[:, y0:y1]).sum() + (
+                t[: y1 - y0] * w_t[y0:y1]).sum()
+        return f
+
+    def render(c, rows, valid_rows=None):
+        out = rasterize(*leaves[:5], c, sh_degree=3, bg=bg, alive=alive,
+                        screen_probe=leaves[5], valid_rows=valid_rows, **kw)
+        loss = loss_of(*rows)(out["render"], out["transmittance"])
+        return out["render"].detach(), torch.autograd.grad(loss, leaves)
+
+    def kernels_vs_plain(name, c, rows, valid_rows=None):
+        feats, binning, fwd_out, gout, state, ckw = composite_bwd_inputs(
+            trainer, leaves, loss_of(*rows), cam=c, raster_kw=kw,
+            valid_rows=valid_rows)
+        check_fwd(name, feats, binning, ckw)
+        args = (feats, binning.tile_offsets, binning.grad_offsets, fwd_out,
+                gout, state)
+        cap = binning.pair_slot_capacity
+        got = K.composite_bwd_cuda(*args, grad_cap=cap, **ckw)
+        torch.cuda.synchronize()
+        check_bwd(name, got, K.composite_bwd_plain(*args, grad_cap=cap,
+                                                   **ckw), binning)
+
+    def flagged(grads, ref):
+        """Per leaf, the values over BWD_RTOL of the leaf's scale."""
+        return [(g - w).abs() > BWD_RTOL * float(w.abs().max())
+                for g, w in zip(grads, ref)]
+
+    full, g_full = render(cam, (0, hh))
+    with plain_composites():
+        full_p, g_full_p = render(cam, (0, hh))
+    kernels_vs_plain("strips' keywords, full frame", cam, (0, hh))
+    n_full = pairs(cam)
+    names = ["means3d", "scales", "quats", "opacities", "features",
+             "screen_probe"]
+    for name, n_gs, balanced in STRIP_LAYOUTS:
+        bounds, h_win = strip_bounds_of(trainer, n_gs, balanced)
+        strips = [(int(bounds[i]), int(bounds[i + 1]),
+                   camera_strip(cam, int(bounds[i]), h_win),
+                   int(bounds[i + 1] - bounds[i]) if balanced else None)
+                  for i in range(n_gs)]
+        scale_y = torch.tensor([1.0, hh / h_win], device=dev)
+        reset_all_launches()
+        imgs = {}
+        for plain in (False, True):
+            owned, grads = [], [torch.zeros_like(x) for x in leaves]
+            for y0, y1, c, vr in strips:
+                if plain:
+                    with plain_composites():
+                        img, g = render(c, (y0, y1), vr)
+                else:
+                    img, g = render(c, (y0, y1), vr)
+                owned.append(img[:, : y1 - y0])
+                g = list(g)
+                g[5] = g[5] * scale_y
+                grads = [a + b for a, b in zip(grads, g)]
+            imgs[plain] = (torch.cat(owned, dim=1), grads)
+            if not plain:
+                launches = launch_counts()
+        n_pairs = sum(pairs(c, vr) for _, _, c, vr in strips)
+        for i, (y0, y1, c, vr) in enumerate(strips):
+            kernels_vs_plain(f"{name} strip {i}", c, (y0, y1), vr)
+
+        err = (imgs[False][0] - full).abs()
+        err_p = (imgs[True][0] - full_p).abs()
+        over = err > STRIP_ATOL
+        flip_px = over.any(0).nonzero()[:, [1, 0]]            # (P, 2) x, y
+        near = torch.zeros(flip_px.shape[0], dtype=torch.long, device=dev)
+        cmax = 1.0
+        for y0, y1, c, _ in strips:
+            sel = (flip_px[:, 1] >= y0) & (flip_px[:, 1] < y1)
+            if bool(sel.any()):
+                near[sel], cm = skip_flips(leaves, alive, kw["tile"], cam, c,
+                                           y0, flip_px[sel])
+                cmax = max(cmax, cm)
+        px_err = err.amax(0)[flip_px[:, 1], flip_px[:, 0]]
+        bound = near * 2 * ALPHA_MIN * (1 + SKIP_REL) * cmax
+        unexplained = int(((near == 0) | (px_err > bound)).sum())
+        over_p = (err_p > STRIP_ATOL).any(0)
+        log(f"[shard strips] {name}: bounds {[int(b) for b in bounds]}, "
+            f"window {h_win} rows, max_span {kw['max_span']}; pairs "
+            f"{n_pairs} over the strips, {n_full} in the full frame; owned "
+            f"rows against the full render max_abs_err {float(err.max()):.3e}"
+            f", elements>{STRIP_ATOL:g}: {int(over.sum())}/{err.numel()} at "
+            f"{flip_px.shape[0]} pixels, each with "
+            f"{near.tolist()} gaussians on the 1/255 skip (unexplained "
+            f"{unexplained}); the plain composites' strips against their "
+            f"full frame: max_abs_err {float(err_p.max()):.3e}, elements>"
+            f"{STRIP_ATOL:g}: {int((err_p > STRIP_ATOL).sum())} at "
+            f"{int(over_p.sum())} pixels, {int((over_p & over.any(0)).sum())}"
+            f" of them the kernels' too; launches {launches}")
+        if (unexplained or int(over.sum()) > STRIP_FLIP_FRACTION
+                * err.numel()):
+            raise AssertionError(f"{name}: the strips disagree with the "
+                                 "full frame")
+        if abs(n_pairs - n_full) > 1e-4 * n_full:
+            raise AssertionError(f"{name}: {n_pairs} pairs over the strips, "
+                                 f"{n_full} in the full frame")
+        for k in ("composite_fwd", "composite_bwd"):
+            if launches[k] != n_gs:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                     f"times for {n_gs} strips")
+        grads, grads_p = imgs[False][1], imgs[True][1]
+        for leaf, g, w, fk, fp in zip(names, grads, g_full,
+                                      flagged(grads, g_full),
+                                      flagged(grads_p, g_full_p)):
+            if leaf == "quats" and trainer.avatar_cfg.isotropic:
+                continue  # zero up to rounding (check_grads)
+            err = (g - w).abs()
+            scale = float(w.abs().max())
+            n_over = int((err > GS2_GRAD_TOL * (scale + w.abs())).sum())
+            log(f"[shard strips] {name} d/d{leaf}: max|g| {scale:.3e}, "
+                f"max_abs_err {float(err.max()):.3e}, over the tolerance "
+                f"{n_over}/{err.numel()}; over {BWD_RTOL:g} of the scale: "
+                f"kernels {int(fk.sum())}, plain {int(fp.sum())}, both "
+                f"{int((fk & fp).sum())}")
+            if n_over or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: d/d{leaf} summed over the "
+                                     "strips disagrees with the full "
+                                     "frame's")
+            if int((fk & ~fp).sum()) > MAX_BWD_FLIP_FRACTION * fk.numel():
+                raise AssertionError(f"{name}: d/d{leaf}: the kernels flip "
+                                     "values that the plain composites do "
+                                     "not")
+    return kw
+
+
+def shard_inputs(trainer, batch, dev, raster_kw):
+    """The step inputs phase 19.2 and the ranks of 19.3 share: phase 7's
+    state at step TRAIN_STEP0, frame 0, one draw of the step's randoms,
+    and the strips' raster keywords (strips and the full frame bin the
+    same pairs, so that gs 2 and world 1 compute one objective)."""
+    from sings_tpu_torch.losses.photometric import draw_step_randoms
+
+    tr = trainer
+    lpips_on = float(tr.cfg.human.loss.lpips_w) > 0
+    return {
+        "cfg": tr.avatar_cfg, "step_cfg": tr.step_cfg,
+        "template": tr.template, "camera": tr.camera,
+        "lpips": tr.lpips_params if lpips_on else None,
+        "raster": raster_kw, "params": tr.params, "buffers": tr.buffers,
+        "cache": tr.cache, "frame": batch, "lap": tr.region_lap,
+        "lap_w": (tr.lap_pos_w, tr.lap_color_w),
+        "active_sh_degree": tr.active_sh_degree,
+        "draws": draw_step_randoms(
+            torch.Generator(device=dev).manual_seed(SEED + 190),
+            batch["mask"], tr.step_cfg.weights.photometric)}
+
+
+def sharded_fn(st, mesh, tx):
+    from sings_tpu_torch.dist.train_sharded import make_sharded_train_step
+    from sings_tpu_torch.losses.regularizers import shard_region_laplacian
+
+    fn = make_sharded_train_step(mesh, st["cfg"], st["step_cfg"],
+                                 st["template"], st["camera"], tx,
+                                 st["lpips"], st["raster"])
+    srl = shard_region_laplacian(st["lap"], mesh.gs).shard(mesh.gs_idx)
+
+    def call(params=None, grads_only=False):
+        p = st["params"] if params is None else params
+        args = (st["cache"], st["frame"], None, TRAIN_STEP0,
+                st["active_sh_degree"], srl, srl, *st["lap_w"])
+        if grads_only:
+            return fn.grads_fn(p, st["buffers"], *args, draws=st["draws"])
+        return fn(p, st["buffers"], tx.init(p), *args, draws=st["draws"])
+    return call
+
+
+def check_world1(st, trainer, smi: str) -> dict:
+    """19.2: a process group of one rank over NCCL; the sharded step at
+    (1, 1) against phase 7's single-card step (the same optimizer, one
+    that keeps the gradients, and the same draws) at tests/test_dist.py's
+    (1, 1) tolerances; both timed in turns (CUDA events)."""
+    import torch.distributed as dist
+
+    from sings_tpu_torch.dist.shard import make_mesh
+    from sings_tpu_torch.train.step import make_train_step
+    from sings_tpu_torch.tree import tree_leaves
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        backend = dist.get_backend()
+        tx = KeepGrads()
+        step = sharded_fn(st, mesh, tx)
+        single = make_train_step(st["cfg"], st["step_cfg"], st["template"],
+                                 st["camera"], tx, st["lpips"], st["raster"])
+
+        def one():
+            return single(st["params"], st["buffers"], tx.init(st["params"]),
+                          st["cache"], st["frame"], None, TRAIN_STEP0,
+                          st["active_sh_degree"], st["lap"], st["lap"],
+                          *st["lap_w"], draws=st["draws"])[:4]
+
+        reset_all_launches()
+        p, b, o, m = step()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        p1, b1, o1, m1 = one()
+        for k in SHARD_METRICS:
+            a, w = float(m[k]), float(m1[k])
+            if abs(a - w) > SHARD_METRIC_ATOL + SHARD_METRIC_RTOL * abs(w):
+                raise AssertionError(f"world 1: metric {k} {a} against the "
+                                     f"single-card step's {w}")
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(tree_leaves(o["g"]),
+                                       tree_leaves(o1["g"]))):
+            scale = float(w.abs().max())
+            bad = int(((g - w).abs() > SHARD_GRAD_ATOL_REL * scale
+                       + SHARD_GRAD_RTOL * w.abs()).sum())
+            worst = max(worst, float((g - w).abs().max()) / max(scale,
+                                                                1e-30))
+            if bad:
+                raise AssertionError(f"world 1: gradient leaf {i}, {bad} "
+                                     "elements outside tolerance")
+        acc_err = float((b.xyz_grad_accum - b1.xyz_grad_accum).abs().max())
+        if not bool(torch.allclose(b.xyz_grad_accum, b1.xyz_grad_accum,
+                                   rtol=1e-3, atol=1e-9)) or not bool(
+                torch.allclose(b.max_radii2d, b1.max_radii2d, atol=1e-4)):
+            raise AssertionError(f"world 1: density statistics differ "
+                                 f"(xyz_grad_accum max err {acc_err:.3e})")
+        turns = [cuda_ms(f, n=2, warm=1) for f in (one, step, step, one)]
+        loss, grads = step(grads_only=True)
+    finally:
+        dist.destroy_process_group()
+    res = {"loss": float(loss), "grads": [g.detach() for g in
+                                          tree_leaves(grads)],
+           "single_ms": (turns[0] + turns[3]) / 2,
+           "sharded_ms": (turns[1] + turns[2]) / 2, "launches": launches}
+    log(f"[shard world 1] backend {backend}: the sharded step at (1, 1) "
+        f"against phase 7's train_step on the same draws: loss "
+        f"{float(m['loss']):.6f} / {float(m1['loss']):.6f}, largest "
+        f"gradient error / leaf scale {worst:.3e}, xyz_grad_accum max err "
+        f"{acc_err:.3e}; launches {launches}; CUDA-event step time single "
+        f"{turns[0]:.3f}, sharded {turns[1]:.3f}, {turns[2]:.3f}, single "
+        f"{turns[3]:.3f} ms | {smi}")
+    for k in SHARD_KERNELS:
+        if launches[k] != 1:
+            raise AssertionError(f"world 1: {k} launched {launches[k]} "
+                                 "times in one step")
+    return res
+
+
+def shard_rank(rank: int, work: str, ports: tuple) -> None:
+    """19.3, one rank of two sharing the card over gloo (spawned): the
+    sharded step at (dp 1, gs 2) from the parent's saved state (loss and
+    gradients, a step twice, the ranks' states compared, launches and
+    CUDA-event times, the transport's host time), the case step at gs 2
+    on two cases against each case's sharded step, then cli.train.main
+    with tpu.mesh.gs=2 --dist-backend gloo from torchrun's environment.
+    Writes its results to work/shard_rank{rank}.pt."""
+    import torch.distributed as dist
+
+    from sings_tpu_torch.cli import train as cli_train
+    from sings_tpu_torch.dist import collectives as C
+    from sings_tpu_torch.dist import train_cases as TC
+    from sings_tpu_torch.dist.shard import make_mesh
+    from sings_tpu_torch.losses.regularizers import shard_region_laplacian
+    from sings_tpu_torch.tree import tree_leaves
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{ports[0]}", rank=rank, world_size=2)
+    st = torch.load(os.path.join(work, "shard_state.pt"), weights_only=False)
+    mesh = make_mesh(2, dp=1)
+    tx = KeepGrads()
+    step = sharded_fn(st, mesh, tx)
+    out = {"mesh": (mesh.dp_idx, mesh.gs_idx), "backend": dist.get_backend()}
+    loss, grads = step(grads_only=True)
+    out["loss"] = float(loss)
+    out["grads"] = [g.detach().cpu() for g in tree_leaves(grads)]
+    reset_all_launches()
+    p, b, o, m = step()
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    p2, b2, o2, m2 = step()
+    out["rerun_equal"] = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((p, b, o, m)), tree_leaves((p2, b2, o2, m2))))
+    out["ranks_equal"] = C.trees_equal((p, b, o, m), mesh.group)
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+
+    # the step's time on this rank (CUDA events) and the host time spent
+    # in the collectives (each call between two synchronisations)
+    spent = [0.0]
+    saved = (C._all_gather_cat, C._all_reduce, C._ppermute)
+
+    def timed(f):
+        def g(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return r
+        return g
+
+    C._all_gather_cat, C._all_reduce, C._ppermute = (timed(f) for f in saved)
+    try:
+        step()
+        spent[0] = 0.0
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        for _ in range(3):
+            step()
+        stop.record()
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t) * 1e3 / 3
+        out["step_ms"] = start.elapsed_time(stop) / 3
+        out["transport_ms"] = spent[0] * 1e3 / 3
+    finally:
+        C._all_gather_cat, C._all_reduce, C._ppermute = saved
+
+    # the case step at gs 2: phase 7's state and its perturbed copy
+    params = [st["params"], perturbed(st["params"])]
+    srl = shard_region_laplacian(st["lap"], 2).shard(mesh.gs_idx)
+    laps = TC.stack_cases([srl, srl])
+    cam = st["camera"]
+    case_step = TC.make_case_train_step(
+        st["cfg"], st["step_cfg"], st["template"], cam.height, cam.width, tx,
+        st["lpips"], st["raster"], gs=2, mesh=mesh)
+    frame = st["frame"]
+    batch = {k: (torch.stack([v, v]) if k != "idx" else [v, v])
+             for k, v in frame.items()}
+    reset_all_launches()
+    cp, cb, co, cm = case_step(
+        TC.stack_cases(params), TC.stack_cases([st["buffers"]] * 2),
+        TC.stack_cases([tx.init(x) for x in params]),
+        TC.stack_cases([st["cache"]] * 2),
+        TC.stack_cases([TC.camera_arrays(cam)] * 2), batch, [None, None],
+        TRAIN_STEP0, st["active_sh_degree"], laps, laps, *st["lap_w"],
+        draws=[st["draws"]] * 2)
+    out["case_launches"] = launch_counts()
+    out["case_equal"] = []
+    for c in range(2):
+        want = step(params=params[c])
+        got = [x[c] for x in tree_leaves((cp, cb, co))] + [
+            cm[k][c] for k in sorted(want[3])]
+        out["case_equal"].append(all(torch.equal(g, w) for g, w in zip(
+            got, tree_leaves(want[:3]) + [want[3][k]
+                                          for k in sorted(want[3])])))
+    out["case_loss"] = [float(x) for x in cm["loss"]]
+    del st, step, case_step, cp, cb, co, p, b, o, p2, b2, o2
+    torch.cuda.empty_cache()
+
+    # the training entry point under torchrun's environment, its own gloo
+    # group
+    dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(ports[1]))
+    kit = torch.load(os.path.join(work, "shard_kit.pt"), weights_only=False)
+    with open(os.path.join(work, "shard_cli.json")) as fh:
+        opts = json.load(fh)
+    rec = {"losses": [], "counts": [], "images": 0}
+    from sings_tpu_torch.train import trainer as T
+
+    orig_init = T.Trainer._init_mesh
+    orig_apply = T.Trainer._apply_density_result
+
+    def init_mesh(self, capacity):
+        orig_init(self, capacity)
+        f = self.train_step_sharded
+
+        def recorded(*a, **k):
+            r = f(*a, **k)
+            rec["losses"].append(float(r[3]["loss"]))
+            return r
+        self.train_step_sharded = recorded
+        rec["trainer"] = self
+
+    def apply(self, res):
+        before = int(self.buffers.alive.sum())
+        orig_apply(self, res)
+        rec["counts"].append((before, int(self.buffers.alive.sum())))
+
+    def images(path, img):
+        rec["images"] += 1
+
+    T.Trainer._init_mesh, T.Trainer._apply_density_result = init_mesh, apply
+    reset_all_launches()
+    t = time.time()
+    try:
+        result = cli_train.main(["--device", "cuda", "--dist-backend", "gloo",
+                                 *opts], kit=kit, image_writer=images)
+    finally:
+        T.Trainer._init_mesh, T.Trainer._apply_density_result = (
+            orig_init, orig_apply)
+    tr = rec.pop("trainer")
+    rec.update(wall=time.time() - t, result=result, step=tr.step,
+               launches=launch_counts(), alive=int(tr.buffers.alive.sum()),
+               state=[x.detach().cpu() for x in tree_leaves(
+                   (tr.params, tr.buffers, tr.opt_state))],
+               ckpts=sorted(os.listdir(tr.logdir_ckpt)),
+               group_left=not dist.is_initialized())
+    out["cli"] = rec
+    torch.save(out, os.path.join(work, f"shard_rank{rank}.pt"))
+
+
+def run_sharded(work: str, dev, smi: str, trainer, batches) -> None:
+    """Phase 19: 19.1 strips through camera_strip and rasterize(valid_rows=)
+    against the full frame; 19.2 the sharded step at world size 1 over
+    NCCL against the single-card step; 19.3 two ranks on the card over
+    gloo (spawned): the sharded step at gs 2 against 19.2, the case step
+    at gs 2, and cli.train.main with tpu.mesh.gs=2."""
+    import torch.multiprocessing as mp
+
+    from sings_tpu_torch.tree import tree_leaves
+
+    t_phase = time.time()
+    batch = {name: v[0] for name, v in batches.items()}
+    kw = check_strips(trainer, batch)
+    t_strips = time.time() - t_phase
+    st = shard_inputs(trainer, batch, dev, kw)
+    w1 = check_world1(st, trainer, smi)
+
+    # ---- 19.3 two ranks on the one card over gloo
+    t1 = time.time()
+    torch.save(st, os.path.join(work, "shard_state.pt"))
+    kit = make_train_kit()._replace(images=trainer.images.cpu().numpy(),
+                                    masks=trainer.masks.cpu().numpy())
+    torch.save(kit, os.path.join(work, "shard_kit.pt"))
+    opts = [x for x in train_dotlist(work, SHARD_CLI_DOTLIST)]
+    with open(os.path.join(work, "shard_cli.json"), "w") as fh:
+        json.dump(opts, fh)
+    del st
+    torch.cuda.empty_cache()
+    mp.start_processes(shard_rank, args=(work, (free_port(), free_port())),
+                       nprocs=2, start_method="spawn")
+    ranks = [torch.load(os.path.join(work, f"shard_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    t_ranks = time.time() - t1
+    a, b = ranks
+    log(f"[shard gs 2] ranks {[r['mesh'] for r in ranks]} over "
+        f"{a['backend']}: loss {a['loss']:.6f} (world 1 {w1['loss']:.6f}), "
+        f"a rerun bit for bit {[r['rerun_equal'] for r in ranks]}, ranks' "
+        f"states equal {a['ranks_equal']}; launches per rank "
+        f"{[r['launches'] for r in ranks]}; CUDA-event step time per rank "
+        f"{[round(r['step_ms'], 3) for r in ranks]} ms (host wall "
+        f"{[round(r['wall_ms'], 3) for r in ranks]} ms), in the collectives"
+        f" {[round(r['transport_ms'], 3) for r in ranks]} ms; world 1: "
+        f"sharded {w1['sharded_ms']:.3f}, single-card {w1['single_ms']:.3f}"
+        f" ms | {smi}")
+    if [r["mesh"] for r in ranks] != [(0, 0), (0, 1)] or a["backend"] != \
+            "gloo":
+        raise AssertionError("19.3: the two ranks' mesh is not (1, 2) gloo")
+    if not abs(a["loss"] - w1["loss"]) <= GS2_LOSS_RTOL * abs(w1["loss"]):
+        raise AssertionError(f"gs 2 loss {a['loss']} against world 1's "
+                             f"{w1['loss']}")
+    for i, (g, w) in enumerate(zip(a["grads"], w1["grads"])):
+        w = w.cpu()
+        tol = GS2_GRAD_TOL * float(w.abs().max()) + GS2_GRAD_TOL * w.abs()
+        if bool(((g - w).abs() > tol).any()):
+            raise AssertionError(f"gs 2 gradient leaf {i} against world 1")
+    for g, h in zip(a["grads"], b["grads"]):
+        if not torch.equal(g, h):
+            raise AssertionError("the two ranks' reduced gradients differ")
+    if not (all(r["rerun_equal"] for r in ranks) and a["ranks_equal"]
+            and b["ranks_equal"]):
+        raise AssertionError("gs 2: a rerun or the ranks' states differ")
+    for r in ranks:
+        for k in SHARD_KERNELS:
+            if r["launches"][k] != 1:
+                raise AssertionError(f"gs 2: {k} launched {r['launches'][k]}"
+                                     " times in one step on one rank")
+            if r["case_launches"][k] != 2:
+                raise AssertionError(f"gs 2 case step: {k} launched "
+                                     f"{r['case_launches'][k]} times")
+        if r["case_equal"] != [True, True]:
+            raise AssertionError("the case step at gs 2 differs from the "
+                                 "cases' sharded steps")
+    log(f"[shard gs 2] case step on two cases: losses {a['case_loss']}, bit "
+        f"for bit each case's sharded step on both ranks; launches per rank "
+        f"{[r['case_launches'] for r in ranks]}")
+    if a["case_loss"][0] == a["case_loss"][1] or not all(
+            math.isfinite(x) for x in a["case_loss"]):
+        raise AssertionError("case step at gs 2: losses")
+    ca, cb = a["cli"], b["cli"]
+    log(f"[shard cli] cli.train.main with tpu.mesh.gs=2 --dist-backend gloo:"
+        f" losses {[round(x, 5) for x in ca['losses']]}, live counts around "
+        f"the density events {ca['counts']}, checkpoints {ca['ckpts']}, "
+        f"images written by rank 0 / 1: {ca['images']} / {cb['images']}, "
+        f"launches per rank {[ca['launches'], cb['launches']]}, psnr "
+        f"{ca['result']['psnr']:.3f}; {ca['wall']:.1f}s")
+    if (len(ca["losses"]) != 4 or not all(math.isfinite(x)
+                                          for x in ca["losses"])
+            or ca["losses"] != cb["losses"] or ca["step"] != 4):
+        raise AssertionError("cli gs 2: the steps' losses")
+    if len(ca["counts"]) != 1 or not ca["counts"][0][1] > ca["counts"][0][0]:
+        raise AssertionError(f"cli gs 2: density events {ca['counts']}")
+    if ca["counts"] != cb["counts"] or not all(
+            torch.equal(x, y) for x, y in zip(ca["state"], cb["state"])):
+        raise AssertionError("cli gs 2: the ranks' final states differ")
+    if ca["ckpts"] != ["human_000003.npz", "human_final.npz"] or cb[
+            "images"] or not ca["images"] or not ca["group_left"]:
+        raise AssertionError("cli gs 2: rank 0 alone writes; the CLI ends "
+                             "its process group")
+    for k in SHARD_KERNELS:
+        if ca["launches"][k] < 4 or ca["launches"][k] != cb["launches"][k] \
+                and k != "composite_fwd":
+            raise AssertionError(f"cli gs 2: {k} launches "
+                                 f"{ca['launches'][k]} / {cb['launches'][k]}")
+    SHARD_LAUNCHES.update({k: a["launches"][k] for k in SHARD_KERNELS})
+    log(f"[shard] stage walls: strips {t_strips:.1f}s, world 1 "
+        f"{t1 - t_phase - t_strips:.1f}s, two ranks {t_ranks:.1f}s; phase 19 "
         f"{time.time() - t_phase:.1f}s")
 
 

@@ -6,8 +6,9 @@ Two modes:
   the other (the port's cli.train.main per case); several hosts split
   the cases by `--shard i/n`.
 - --simultaneous: all cases train in lockstep, one case step updating
-  every case (train/trainer_cases.py::CasePool); on one card the cases'
-  steps run one after another (gs = 1).
+  every case (train/trainer_cases.py::CasePool); the cases' steps run
+  one after another, each split over --gs ranks (one process each,
+  under torchrun --nproc_per_node=GS; rank 0 writes).
 
 Usage:
     python -m sings_tpu_torch.cli.train_batch -c configs/human_complex.yaml \
@@ -37,8 +38,12 @@ def main(argv=None, *, kits=None, image_writer=None):
                         "instead of one after another")
     parser.add_argument("--gs", type=int, default=1,
                         help="gaussian/strip shards per case "
-                        "(simultaneous mode; only 1 is ported)")
+                        "(simultaneous mode; one rank each)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="process-group backend under torchrun "
+                        "(default: nccl on CUDA, gloo on the CPU)")
     parser.add_argument("opts", nargs="*")
     args = parser.parse_args(argv)
 
@@ -66,10 +71,14 @@ def main(argv=None, *, kits=None, image_writer=None):
 
 
 def _train_simultaneous(args, kits, image_writer):
+    import torch.distributed as dist
+
     from ..config.core import load_config, save_config
     from ..config.defaults import DEFAULTS
+    from ..dist.collectives import start_from_env
     from ..train.trainer_cases import CasePool
 
+    args.device, started = start_from_env(args.dist_backend, args.device)
     cfgs = [load_config(DEFAULTS, args.cfg_file,
                         [f"dataset.name={case}"] + list(args.opts))
             for case in args.cases]
@@ -77,14 +86,21 @@ def _train_simultaneous(args, kits, image_writer):
                     kits=None if kits is None else [kits[c]
                                                     for c in args.cases],
                     image_writer=image_writer)
+    io = pool.trainers[0].io_rank
     for cfg, t in zip(cfgs, pool.trainers):
-        save_config(cfg, os.path.join(t.logdir, "config_train.yaml"))
+        if io:
+            save_config(cfg, os.path.join(t.logdir, "config_train.yaml"))
     results = pool.train()
     for t in pool.trainers:
-        t.visualize("final")
-        t.save_splat_file()
-    for case, res in results.items():
-        print(f"[batch] {case}: {res}")
+        if io:
+            t.visualize("final")
+            t.save_splat_file()
+    if io:
+        for case, res in results.items():
+            print(f"[batch] {case}: {res}")
+    if started:
+        dist.barrier()
+        dist.destroy_process_group()
     return results
 
 

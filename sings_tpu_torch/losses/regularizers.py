@@ -3,8 +3,9 @@
 Every term works on the padded static buffers with an `alive` mask:
   * l2_norm_loss: xyz-offset norm, scale spread, above-threshold scales,
     below-threshold opacity;
-  * edge_stat / gaussians_edge_loss{,_from_stat}: scale against the
-    mean distance to the K-1 nearest neighbours (a detached statistic);
+  * edge_stat / gaussians_edge_loss{,_from_stat,_rows}: scale against
+    the mean distance to the K-1 nearest neighbours (a detached
+    statistic; _rows is one gs rank's range of query rows);
   * mesh_edge_loss: mean squared edge length;
   * RegionLaplacian: the per-region uniform graph laplacian of the
     anchor mesh as one padded neighbour table (build_region_laplacian
@@ -12,7 +13,10 @@ Every term works on the padded static buffers with an `alive` mask:
   * CotRegionLaplacian: the cotangent laplacian over overlapping
     region partitions, weights frozen at the build;
   * BandedRegionLaplacian: the uniform laplacian in a reverse
-    Cuthill-McKee order, applied as skewed dense blocks of its band.
+    Cuthill-McKee order, applied as skewed dense blocks of its band;
+  * ShardedRegionLaplacian: the uniform laplacian's rows split over the
+    gs ranks (shard_region_laplacian), each rank's term a local
+    contribution whose rank-sum is the full term.
 
 The uniform laplacian's "gather" backend: the forward is a neighbour
 gather and its gradient is PyTorch's autograd of it (a scatter-add,
@@ -28,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.knn import knn, knn_window_stat
+from ..ops.knn import knn, knn_rows, knn_window_stat
 
 
 def _masked_norm(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -96,6 +100,25 @@ def gaussians_edge_loss(xyz_canon: torch.Tensor, scales: torch.Tensor,
     (edge_stat)."""
     return gaussians_edge_loss_from_stat(
         edge_stat(xyz_canon, alive, k=k, backend=backend), scales, alive)
+
+
+def gaussians_edge_loss_rows(xyz_canon: torch.Tensor, scales: torch.Tensor,
+                             alive: torch.Tensor, row_start: int, rows: int,
+                             k: int = 9) -> torch.Tensor:
+    """gaussians_edge_loss restricted to the query rows [row_start,
+    row_start + rows): one gs rank's local contribution, whose rank-sum
+    is gaussians_edge_loss (the same candidates, all points, and the
+    same global alive normaliser). The JAX package's default approx=True
+    computes the exact top-k off the TPU, as the port does."""
+    with torch.no_grad():
+        dists, _ = knn_rows(xyz_canon, k, row_start=row_start, rows=rows,
+                            valid=alive > 0)
+        edge_len = torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(
+            dim=1)
+    s_loc = scales[row_start: row_start + rows, 0]
+    a_loc = alive[row_start: row_start + rows]
+    err = (s_loc - edge_len) ** 2 * a_loc
+    return err.sum() / torch.clamp_min(alive.sum(), 1.0)
 
 
 def mesh_edge_loss(verts: torch.Tensor, edges: torch.Tensor,
@@ -561,3 +584,109 @@ def build_region_laplacian_banded(edges: np.ndarray,
         vert_valid=t(valid_p.astype(np.float32)),
         inv_count=t((1.0 / np.maximum(counts, 1)).astype(np.float32)),
         weights=t(np.asarray(region_weights, np.float32)))
+
+
+# ---------------------------------------------------------------------------
+# The uniform laplacian's rows split over the gs ranks (sharded training)
+
+
+class ShardedRegionLaplacian(NamedTuple):
+    """RegionLaplacian split into n_gs contiguous row ranges, one per gs
+    rank, every field stacked on a leading gs axis (shard(i) keeps rank
+    i's, with that axis of length 1, which loss_fused reads).
+
+      neighbors/nbr_w: (gs, C/gs, D) local rows -> global vertex slots,
+                       weight 1/deg(row)
+      t_neighbors/t_w: (gs, C, Dt) transposed table: for global vertex
+                       v, the local rows adjacent to it and their
+                       weights, so the backward is a gather (never a
+                       float scatter)
+      label/vert_valid:(gs, C/gs) per local row
+      inv_count/weights:(gs, R) copies
+      row_start:       (gs,) int32 global index of the first local row,
+                       on the host (read without a device round trip)
+    """
+
+    neighbors: torch.Tensor
+    nbr_w: torch.Tensor
+    t_neighbors: torch.Tensor
+    t_w: torch.Tensor
+    label: torch.Tensor
+    vert_valid: torch.Tensor
+    inv_count: torch.Tensor
+    weights: torch.Tensor
+    row_start: torch.Tensor
+
+    def shard(self, i: int) -> "ShardedRegionLaplacian":
+        """Rank i's row range (leading axis 1)."""
+        return ShardedRegionLaplacian(*[x[i: i + 1] for x in self])
+
+    def loss_fused(self, terms) -> list[torch.Tensor]:
+        """This rank's contributions (the table of one rank, shard(i));
+        their rank-sum equals RegionLaplacian.loss_fused on the full
+        table. x of each term is the global (C, F) array (all-gathered);
+        its gradient flows back through the transposed gather."""
+        nb, w = self.neighbors[0], self.nbr_w[0]
+        row0 = int(self.row_start[0])
+        rows = nb.shape[0]
+        xcat = torch.cat([t[0] for t in terms], dim=-1)
+        mean_nb = _WeightedNeighborSum.apply(nb, w, self.t_neighbors[0],
+                                             self.t_w[0], xcat)
+        lx = mean_nb - xcat[row0: row0 + rows]
+        return _region_sums(lx, terms, self.label[0].long(),
+                            self.weights[0], row_mask=self.vert_valid[0],
+                            inv_count=self.inv_count[0])
+
+
+def shard_region_laplacian(rl: RegionLaplacian, n_gs: int,
+                           pad_t_width_to: int | None = None,
+                           ) -> ShardedRegionLaplacian:
+    """Host-side split of a built RegionLaplacian into n_gs row ranges.
+
+    The transposed tables are padded to the widest rank's width (or
+    pad_t_width_to: the case pool needs one width across its cases), so
+    every rank's shapes agree."""
+    dev = rl.neighbors.device
+    nb = rl.neighbors.cpu().numpy()
+    nv = rl.nbr_valid.cpu().numpy()
+    c, d = nb.shape
+    assert c % n_gs == 0, "capacity must split over gs"
+    rows = c // n_gs
+    deg = np.maximum(nv.sum(-1), 1.0)
+    w_full = (nv / deg[:, None]).astype(np.float32)
+
+    # the full table as COO, once
+    src = np.repeat(np.arange(c), d)
+    dst = nb.reshape(-1)
+    val = w_full.reshape(-1)
+    keep = nv.reshape(-1) > 0
+    src, dst, val = src[keep], dst[keep], val[keep]
+
+    t_nb, t_w = [], []
+    dt = pad_t_width_to or 1
+    for r in range(n_gs):
+        lo, hi = r * rows, (r + 1) * rows
+        m = (src >= lo) & (src < hi)
+        tnb, tw = _pad_table(dst[m], src[m] - lo, val[m], c)
+        t_nb.append(tnb)
+        t_w.append(tw)
+        dt = max(dt, tnb.shape[1])
+    t_nb = [np.pad(x, ((0, 0), (0, dt - x.shape[1]))) for x in t_nb]
+    t_w = [np.pad(x, ((0, 0), (0, dt - x.shape[1]))) for x in t_w]
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    def split(x):
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return t(x.reshape((n_gs, rows) + x.shape[1:]))
+
+    def rep(x):
+        return t(np.tile(x.cpu().numpy()[None], (n_gs, 1)))
+
+    return ShardedRegionLaplacian(
+        neighbors=split(nb), nbr_w=split(w_full),
+        t_neighbors=t(np.stack(t_nb)), t_w=t(np.stack(t_w)),
+        label=split(rl.label), vert_valid=split(rl.vert_valid),
+        inv_count=rep(rl.inv_count), weights=rep(rl.weights),
+        row_start=torch.as_tensor(np.arange(n_gs, dtype=np.int32) * rows))

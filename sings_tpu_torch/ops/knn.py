@@ -11,7 +11,8 @@ discontinuity can hide a true neighbour, so the statistic never
 underestimates the exact one). The codes are JAX's bit for bit
 (morton3d quantises in its float order and truncates to int32) and the
 sort is stable as jnp.argsort is, so both packages search the same
-windows. knn_rows is not ported yet.
+windows. knn_rows is knn restricted to a range of query rows (the
+gs-sharded step's split of the statistic); its rows equal knn's.
 """
 from __future__ import annotations
 
@@ -48,6 +49,32 @@ def knn(points: torch.Tensor, k: int, *, valid: torch.Tensor | None = None,
         dists.append(d)
         idx.append(i)
     return torch.clamp_min(torch.cat(dists), 0.0), torch.cat(idx)
+
+
+def knn_rows(points: torch.Tensor, k: int, *, row_start: int, rows: int,
+             valid: torch.Tensor | None = None, block: int = 4096):
+    """knn restricted to the queries [row_start, row_start + rows); the
+    candidates are still all points. The query range is padded up to a
+    whole number of min(block, rows)-row blocks by a clamped row gather
+    (the pad rows are dropped), as in the JAX package. Returns (rows, k)
+    squared distances and indices, equal to knn's rows."""
+    n = points.shape[0]
+    sq = _sum_squares(points)
+    bl = min(block, rows)
+    nblocks = -(-rows // bl)
+    inf = torch.full((), float("inf"), device=points.device)
+    dists, idx = [], []
+    for b in range(nblocks):
+        qi = torch.clamp(row_start + b * bl + torch.arange(
+            bl, device=points.device), 0, n - 1)
+        d2 = sq[qi, None] + sq[None, :] - 2.0 * (points[qi] @ points.T)
+        if valid is not None:
+            d2 = torch.where(valid[None, :], d2, inf)
+        d, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        dists.append(d)
+        idx.append(i)
+    return (torch.clamp_min(torch.cat(dists)[:rows], 0.0),
+            torch.cat(idx)[:rows])
 
 
 def _spread3(x: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,9 @@ class RasterConfig(NamedTuple):
     # settings here (same sums, f32 reassociation)
     scan_roll: bool = False
     layout: str = "tiled"
+    # the render owns only its first valid_rows pixel rows (balanced
+    # strips of sharded training): tile rows past them bin no pairs
+    row_limit: bool = False
 
     @property
     def panel_width(self) -> int:
@@ -73,14 +76,26 @@ def _gather_feats(binning: TileBinning, means2d, conics, colors, opacities,
     return feats
 
 
-def prepare_composite(g2d: Gaussians2D, cfg: RasterConfig):
+def valid_tiles_y(cfg: RasterConfig, valid_rows):
+    """The tile rows that hold owned pixel rows, ceil(valid_rows / tile),
+    or None without a row limit."""
+    if not cfg.row_limit:
+        return None
+    if isinstance(valid_rows, torch.Tensor):
+        return torch.ceil(valid_rows / cfg.tile).to(torch.int32)
+    return -(-int(valid_rows) // cfg.tile)
+
+
+def prepare_composite(g2d: Gaussians2D, cfg: RasterConfig,
+                      valid_rows=None):
     """Binning + pair features: the composite kernel's inputs."""
     ntx, nty = _pad_tiles(cfg)
     binning = bin_gaussians(
         g2d, tile=cfg.tile, n_tiles_x=ntx, n_tiles_y=nty,
         max_span=cfg.max_span, align=cfg.chunk, max_pairs=cfg.max_pairs,
         main_width=cfg.main_width, tail_capacity=cfg.tail_capacity,
-        cull=cfg.cull, pair_cap=cfg.pair_cap)
+        cull=cfg.cull, pair_cap=cfg.pair_cap,
+        valid_tiles_y=valid_tiles_y(cfg, valid_rows))
     feats = _gather_feats(binning, g2d.means2d, g2d.conics, g2d.colors,
                           g2d.opacities, cfg.chunk)
     return feats, binning
@@ -131,8 +146,8 @@ def unsort_pair_grads(pair_grads: torch.Tensor, binning: TileBinning,
 
 class _Composite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, want_state, means2d, conics, colors, opacities,
-                depths, radii, mask):
+    def forward(ctx, cfg, want_state, valid_rows, means2d, conics, colors,
+                opacities, depths, radii, mask):
         if cfg.layout not in ("tiled", "panel"):
             raise NotImplementedError(
                 f"layout={cfg.layout!r}: the layouts are 'tiled' and "
@@ -140,7 +155,7 @@ class _Composite(torch.autograd.Function):
         g2d = Gaussians2D(means2d=means2d, depths=depths, conics=conics,
                           colors=colors, opacities=opacities, radii=radii,
                           mask=mask)
-        feats, binning = prepare_composite(g2d, cfg)
+        feats, binning = prepare_composite(g2d, cfg, valid_rows)
         ntx, nty = _pad_tiles(cfg)
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
                   n_tiles_y=nty,
@@ -188,8 +203,8 @@ class _Composite(torch.autograd.Function):
                                        **kw)
         pg = unsort_pair_grads(pair_grads, binning,
                                binning.tail_of_gauss.shape[0])
-        return (None, None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8], pg[:, 8],
-                None, None, None)
+        return (None, None, None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8],
+                pg[:, 8], None, None, None)
 
 
 def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
@@ -200,7 +215,8 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
               max_span: int = 5, max_pairs: int | None = None,
               main_width: int = 6, tail_capacity: int | None = None,
               cull: bool = True, pair_cap: int | None = None,
-              scan_roll: bool = False, layout: str = "tiled") -> dict:
+              scan_roll: bool = False, layout: str = "tiled",
+              valid_rows=None) -> dict:
     """Differentiable gaussian splatting to an image.
 
     backend "pallas" (the JAX package's name, kept so callers pass the
@@ -211,6 +227,11 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
     screen_probe: optional (N, 2) zeros added to the screen means as
     probe * (W/2, H/2); its gradient is the NDC-convention screen
     gradient that density control accumulates.
+
+    valid_rows: the pixel rows this render owns (a balanced strip of
+    sharded training), an int or a 0-d tensor: tile rows past them bin
+    no pairs and render bg; the rows below are bit for bit the
+    unrestricted render's.
     """
     if bg is None:
         bg = means3d.new_zeros(3)
@@ -226,12 +247,14 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
             height=camera.height, width=camera.width, tile=tile,
             chunk=chunk, max_span=max_span, max_pairs=max_pairs,
             main_width=main_width, tail_capacity=tail_capacity, cull=cull,
-            pair_cap=pair_cap, scan_roll=scan_roll, layout=layout)
+            pair_cap=pair_cap, scan_roll=scan_roll, layout=layout,
+            row_limit=valid_rows is not None)
         inputs = (g2d.means2d, g2d.conics, g2d.colors, g2d.opacities)
         want_state = torch.is_grad_enabled() and any(
             x.requires_grad for x in inputs)
         color, t_final = _Composite.apply(
-            cfg, want_state, *inputs, g2d.depths, g2d.radii, g2d.mask)
+            cfg, want_state, valid_rows, *inputs, g2d.depths, g2d.radii,
+            g2d.mask)
         image = color + t_final[None] * bg[:, None, None]
     elif backend == "reference":
         image, t_final = composite_dense(g2d, camera.height, camera.width, bg)

@@ -90,6 +90,60 @@ def _zeros_for_none(grads, leaves):
             for x, g in zip(leaves, grads)]
 
 
+def regularizer_terms(step_cfg: StepConfig, out: dict,
+                      buffers: AvatarBuffers, step: int, region_lap_pos,
+                      region_lap_color, lap_pos_w, lap_color_w, connect_fn,
+                      n_rep: int = 1) -> dict:
+    """The per-gaussian regularisers of the objective, from
+    avatar_forward's gated outputs: l2 and mesh edge, divided by n_rep
+    (the ranks that each compute them whole; 1 on one card), the KNN
+    edge term as connect_fn(xyz_canon, scales, alive) gives it, and the
+    region laplacians with the impose ramp and the hand term.
+    region_lap_*: RegionLaplacian-like (loss_fused); the sharded step
+    passes this rank's ShardedRegionLaplacian rows. Returns 0-d tensors
+    under reg_l2, mesh_edge, connect, lap_pos, lap_color and hand_lap."""
+    w = step_cfg.weights
+    alive = buffers.alive
+    zero = torch.zeros((), device=alive.device)
+    # the opacity-norm term joins after density control ends
+    reg = l2_norm_loss(w.l2, out["xyz_offsets"], out["scales"],
+                       out["opacity"] if step >= step_cfg.opacity_norm_from
+                       else None, alive) / n_rep
+    edge = zero if w.mesh_edge == 0 else w.mesh_edge * mesh_edge_loss(
+        out["xyz_canon"].detach(), buffers.edges, buffers.edge_valid) / n_rep
+    connect = zero if w.gaussian_connect == 0 else (
+        w.gaussian_connect * connect_fn(out["xyz_canon"].detach(),
+                                        out["scales"], alive))
+
+    pos_terms = []
+    if w.lap_position_strength != 0:
+        pos_terms.append((out["xyz_anchor_canon"], lap_pos_w, None))
+    hand_on = w.hand_lap_weight * w.hand_strength != 0
+    if hand_on:
+        pos_terms.append((out["xyz_canon"], torch.ones_like(lap_pos_w),
+                          [6, 7]))
+    color_on = w.lap_color_strength != 0
+    if color_on and step_cfg.lap_shared:
+        pos_terms.append((out["shs"][:, 0], lap_color_w, None))
+    fused = region_lap_pos.loss_fused(pos_terms) if pos_terms else []
+    lap_pos = fused.pop(0) if w.lap_position_strength != 0 else zero
+    hand_raw = fused.pop(0) if hand_on else zero
+    if color_on:
+        lap_color = (fused.pop(0) if step_cfg.lap_shared
+                     else region_lap_color.loss_fused(
+                         [(out["shs"][:, 0], lap_color_w, None)])[0])
+    else:
+        lap_color = zero
+    ramp = min(max((step - w.lap_impose_from)
+                   / max(w.lap_impose_from, 1), 0.0), 1.0)
+    alpha = w.lap_position_strength * ramp * (
+        2.0 if step > w.lap_double_after else 1.0)
+    return {"reg_l2": reg, "mesh_edge": edge, "connect": connect,
+            "lap_pos": alpha * lap_pos,
+            "lap_color": w.lap_color_strength * lap_color,
+            "hand_lap": w.hand_lap_weight * w.hand_strength * hand_raw}
+
+
 def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                     template, camera: Camera | None, tx,
                     lpips_params: LPIPSParams | None, raster_kw: dict):
@@ -156,52 +210,20 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
             photo = photo + w.silhouette * l_sil
             photo_d = dict(photo_d, sil=w.silhouette * l_sil)
 
-        alive = buffers.alive
-        zero = torch.zeros((), device=dev)
-        # the opacity-norm term joins after density control ends
-        reg = l2_norm_loss(w.l2, out["xyz_offsets"], out["scales"],
-                           out["opacity"] if step >= step_cfg.opacity_norm_from
-                           else None, alive)
-        edge = zero if w.mesh_edge == 0 else w.mesh_edge * mesh_edge_loss(
-            out["xyz_canon"].detach(), buffers.edges, buffers.edge_valid)
-        if w.gaussian_connect == 0:
-            connect = zero
-        elif edge_stat is not None:
-            connect = w.gaussian_connect * gaussians_edge_loss_from_stat(
-                edge_stat, out["scales"], alive)
-        else:
-            connect = w.gaussian_connect * gaussians_edge_loss(
-                out["xyz_canon"].detach(), out["scales"], alive,
-                k=step_cfg.knn_k,
+        def connect_fn(xyz_canon, scales, alive):
+            if edge_stat is not None:
+                return gaussians_edge_loss_from_stat(edge_stat, scales, alive)
+            return gaussians_edge_loss(
+                xyz_canon, scales, alive, k=step_cfg.knn_k,
                 backend=("dense" if step_cfg.knn_backend == "chunk"
                          else step_cfg.knn_backend))
 
-        pos_terms = []
-        if w.lap_position_strength != 0:
-            pos_terms.append((out["xyz_anchor_canon"], lap_pos_w, None))
-        hand_on = w.hand_lap_weight * w.hand_strength != 0
-        if hand_on:
-            pos_terms.append((out["xyz_canon"], torch.ones_like(lap_pos_w),
-                              [6, 7]))
-        color_on = w.lap_color_strength != 0
-        if color_on and step_cfg.lap_shared:
-            pos_terms.append((out["shs"][:, 0], lap_color_w, None))
-        fused = region_lap_pos.loss_fused(pos_terms) if pos_terms else []
-        lap_pos = fused.pop(0) if w.lap_position_strength != 0 else zero
-        hand_raw = fused.pop(0) if hand_on else zero
-        if color_on:
-            lap_color = (fused.pop(0) if step_cfg.lap_shared
-                         else region_lap_color.loss(out["shs"][:, 0],
-                                                    lap_color_w))
-        else:
-            lap_color = zero
-        ramp = min(max((step - w.lap_impose_from)
-                       / max(w.lap_impose_from, 1), 0.0), 1.0)
-        alpha = w.lap_position_strength * ramp * (
-            2.0 if step > w.lap_double_after else 1.0)
-        lap_pos_loss = alpha * lap_pos
-        lap_color_loss = w.lap_color_strength * lap_color
-        hand_lap = w.hand_lap_weight * w.hand_strength * hand_raw
+        r = regularizer_terms(step_cfg, out, buffers, step, region_lap_pos,
+                              region_lap_color, lap_pos_w, lap_color_w,
+                              connect_fn)
+        reg, edge, connect = r["reg_l2"], r["mesh_edge"], r["connect"]
+        lap_pos_loss, lap_color_loss = r["lap_pos"], r["lap_color"]
+        hand_lap = r["hand_lap"]
 
         total = (photo + reg + edge + connect + lap_pos_loss
                  + lap_color_loss + hand_lap)

@@ -22,6 +22,17 @@ visualisation, SH annealing and hybrid density control (host numpy
 topology surgery, Adam moments zeroed at the changed slots, opacity
 reset, laplacian rebuild), then a final checkpoint and validation.
 
+With tpu.mesh (dp, gs) and dp * gs > 1, a training run is one process
+per rank of a torch.distributed process group of dp * gs ranks
+(cli/train.py starts it from torchrun's environment): train() takes dp
+frames a step from the one shuffled order, one per dp rank, through
+dist/train_sharded.py's step, with the strips balanced from the masks'
+row sums when tpu.mesh.balance_strips is set. Rank 0 alone writes logs,
+checkpoints, validation, visualisations and the synthetic calibration;
+the other ranks wait at a barrier. A host event (resume, density
+control, laplacian rebuild) ends with every rank holding rank 0's
+params, buffers and optimizer state bit for bit (a broadcast).
+
 Deviations from the JAX signatures:
   * Trainer(..., kit=TrainingKit) takes a kit held in memory, so a run
     needs no image files (and no image library) on disk;
@@ -53,6 +64,9 @@ from ..config.defaults import (
 from ..data.anim import load_anim_dataset
 from ..data.kit import TrainingKit, load_kit
 from ..device import resolve_device
+from ..dist.collectives import (
+    barrier, broadcast_object, broadcast_tree, world_rank, world_size,
+)
 from ..data.cameras import get_rotating_cameras, get_smpl_static_params
 from ..export.ply import save_ellipsoid_mesh, save_ply, save_splat
 from ..fields.decoders import DecoderConfig, appearance_opacity_logit
@@ -63,7 +77,7 @@ from ..losses.lpips import get_lpips, lpips_distance
 from ..losses.photometric import PhotometricWeights
 from ..losses.regularizers import (
     L2NormConfig, build_cot_region_laplacian, build_region_laplacian,
-    build_region_laplacian_banded, edge_stat,
+    build_region_laplacian_banded, edge_stat, shard_region_laplacian,
 )
 from ..model.avatar import (
     AvatarConfig, avatar_forward, avatar_forward_chunk, fit_initial_attrs,
@@ -106,6 +120,13 @@ def default_raster_kw(cfg, device: torch.device) -> dict:
         # same so CPU renders compare like with like
         kw.update(chunk=8)
     return kw
+
+
+def _world_group():
+    """The whole process group, None without one (or with one rank)."""
+    import torch.distributed as dist
+
+    return dist.group.WORLD if world_size() > 1 else None
 
 
 def quantize(render: torch.Tensor) -> torch.Tensor:
@@ -172,7 +193,10 @@ class Trainer:
                                                            "ckpt")
         for sub in ("", "ckpt", "val", "train", "anim", "meshes", "canon"):
             os.makedirs(os.path.join(self.logdir, sub), exist_ok=True)
-        install_run_log(self.logdir, mode)
+        # rank 0 alone writes: logs, checkpoints, images, caches
+        self.io_rank = world_rank() == 0
+        if self.io_rank:
+            install_run_log(self.logdir, mode)
         self.bg_color = (torch.ones(3, device=self.device)
                          if cfg.bg_color == "white"
                          else torch.zeros(3, device=self.device))
@@ -218,7 +242,12 @@ class Trainer:
             self.kit = self.kit._replace(smpl=smpl)
         if (self.tpl.name == "synthetic"
                 and cfg.tpu.get("auto_fit_synthetic", True)):
+            # rank 0 fits and writes the cache, the others then load it
+            if not self.io_rank:
+                barrier(_world_group())
             self._fit_synthetic_body()
+            if self.io_rank:
+                barrier(_world_group())
         self.template = DeviceTemplate.from_host(self.tpl, self.device)
 
         pad_f = int(cfg.dataset.get("pad_frames_to", 0) or 0)
@@ -293,6 +322,8 @@ class Trainer:
                     "config and this is an eval/animate run")
         if not loaded and mode == "train" and not cfg.eval:
             self._init_attrs()
+        if getattr(self, "mesh", None) is not None:
+            self._sync_from_rank0(self.mesh.group)
 
     # ------------------------------------------------------------------
     def _init_training(self, hcfg, capacity: int) -> None:
@@ -350,12 +381,6 @@ class Trainer:
             lap_impose_from=int(loss_cfg.laplacian.impose_from_iter),
         )
         dc = hcfg.density_control.hybrid
-        mesh_cfg = dict(cfg.tpu.get("mesh", {}) or {})
-        if int(mesh_cfg.get("dp", 1) or 1) * int(mesh_cfg.get("gs", 1)
-                                                 or 1) > 1:
-            raise NotImplementedError(
-                f"tpu.mesh={mesh_cfg}: the sharded (dp, gs) training step "
-                "is not ported")
         self.inner_steps = int(cfg.tpu.get("inner_steps", 1) or 1)
         knn_backend = str(cfg.tpu.get("knn_backend", "auto"))
         if knn_backend == "auto":
@@ -380,6 +405,7 @@ class Trainer:
                     xyz = get_canon_xyz(params, buffers, acfg)
                 return edge_stat(xyz, buffers.alive, k=step_cfg.knn_k)
         self.train_scan = make_train_scan(self.train_step, stat_fn)
+        self._init_mesh(capacity)
 
         self.lap_pos_w = torch.as_tensor(parse_region_weights(
             loss_cfg.laplacian.position_regions_w,
@@ -401,6 +427,80 @@ class Trainer:
         if os.path.exists(res_path):
             with open(res_path) as fh:
                 self.eval_metrics = json.load(fh)
+
+    def _init_mesh(self, capacity: int) -> None:
+        """tpu.mesh (dp, gs) with dp * gs > 1: the rank mesh over the
+        process group and the sharded step (dist/)."""
+        cfg = self.cfg
+        mesh_cfg = dict(cfg.tpu.get("mesh", {}) or {})
+        dp = int(mesh_cfg.get("dp", 1) or 1)
+        gs = int(mesh_cfg.get("gs", 1) or 1)
+        self.mesh = None
+        self.mesh_dp = 1
+        if dp * gs == 1:
+            return
+        if world_size() != dp * gs:
+            raise ValueError(
+                f"tpu.mesh requests dp={dp} x gs={gs} ranks, the process "
+                f"group has {world_size()} (start one process per rank: "
+                f"torchrun --nproc_per_node={dp * gs} -m "
+                "sings_tpu_torch.cli.train ...)")
+        if self.camera.height % gs:
+            raise ValueError(
+                f"image height {self.camera.height} must split into gs={gs}"
+                " strips (use dataset.downscale or gs that divides it)")
+        assert capacity % gs == 0  # capacity is 256-aligned
+        lap_type = str(cfg.human.loss.laplacian.type)
+        backend = str(cfg.tpu.get("laplacian_backend", "auto"))
+        if lap_type == "cotangent" or backend == "banded":
+            raise ValueError(
+                f"tpu.mesh with laplacian.type={lap_type!r}, "
+                f"tpu.laplacian_backend={backend!r}: the sharded step splits"
+                " the standard laplacian's gather tables by rows")
+        from ..dist.shard import (
+            balanced_strip_bounds, dp_generator, make_mesh,
+        )
+        from ..dist.train_sharded import make_sharded_train_step
+
+        self.mesh = make_mesh(dp * gs, dp=dp)
+        self.mesh_dp = dp
+        strip_bounds, strip_h_max = None, None
+        if mesh_cfg.get("balance_strips") and gs > 1:
+            # balanced boundaries from the training masks' row sums (the
+            # subject's row density stands for the pair density)
+            row_w = self.masks.sum(dim=(0, 2)).cpu().numpy()
+            strip_bounds, strip_h_max = balanced_strip_bounds(
+                row_w, gs, tile=self.raster_kw.get("tile", 16))
+            self._log(f"[mesh] balanced strips: bounds "
+                      f"{strip_bounds.tolist()} h_max={strip_h_max}")
+        self.strip_bounds = strip_bounds
+        lpips_on = float(cfg.human.loss.lpips_w) > 0
+        self.train_step_sharded = make_sharded_train_step(
+            self.mesh, self.avatar_cfg, self.step_cfg, self.template,
+            self.camera, self.tx, self.lpips_params if lpips_on else None,
+            self.raster_kw, strip_bounds=strip_bounds,
+            strip_h_max=strip_h_max)
+        # dp frames a step replace the single-card chunks
+        self.inner_steps = 1
+        self.step_generator = dp_generator(cfg.seed, self.mesh, self.device)
+        self._log(f"[mesh] training on a (dp={dp}, gs={gs}) rank mesh")
+
+    def _log(self, msg: str) -> None:
+        if self.io_rank:
+            print(msg, flush=True)
+
+    def _sync_from_rank0(self, group) -> None:
+        """End a host event: rank 0's params, buffers and optimizer state
+        on every rank of the group, and the laplacian rebuilt where rank
+        0's topology differs from this rank's."""
+        b = self.buffers
+        mine = (b.alive, b.vertex_label, b.edges, b.edge_valid)
+        self.params, self.buffers, self.opt_state = broadcast_tree(
+            (self.params, self.buffers, self.opt_state), group)
+        b = self.buffers
+        if not all(torch.equal(x, y) for x, y in zip(
+                mine, (b.alive, b.vertex_label, b.edges, b.edge_valid))):
+            self._rebuild_laplacians()
 
     def _init_attrs(self) -> None:
         """Pre-fit the decoders (cfg.train.init_steps Adam steps), then
@@ -466,6 +566,10 @@ class Trainer:
         if hasattr(self.region_lap, "neighbors"):
             self._lap_pad = max(self._lap_pad or 8,
                                 self.region_lap.neighbors.shape[1])
+        if getattr(self, "mesh", None) is not None:
+            # this rank's rows of the laplacian
+            self.region_lap_mesh = shard_region_laplacian(
+                self.region_lap, self.mesh.gs).shard(self.mesh.gs_idx)
 
     # ------------------------------------------------------------------
     def train(self):
@@ -489,7 +593,7 @@ class Trainer:
                        and not self._is_event(t_iter + k)):
                     k += 1
             frames = []
-            for _ in range(k):
+            for _ in range(k if self.mesh is None else self.mesh_dp):
                 if cursor >= len(order):
                     self.order_rng.shuffle(order)
                     cursor = 0
@@ -498,7 +602,27 @@ class Trainer:
 
             laps = (self.region_lap, self.region_lap, self.lap_pos_w,
                     self.lap_color_w)
-            if k == 1:
+            if self.mesh is not None:
+                # one update: the dp frames' gradients averaged, each
+                # frame's work split over its gs ranks
+                frame = frames[self.mesh.dp_idx]
+                batch = {"rgb": self.images[frame], "mask": self.masks[frame],
+                         "idx": frame,
+                         "smpl_scale": torch.ones(1, device=self.device)}
+                (self.params, self.buffers, self.opt_state,
+                 metrics) = self.train_step_sharded(
+                    self.params, self.buffers, self.opt_state, self.cache,
+                    batch, self.step_generator, t_iter,
+                    self.active_sh_degree, self.region_lap_mesh,
+                    self.region_lap_mesh, self.lap_pos_w, self.lap_color_w)
+                last_loss = metrics["loss"]
+                last_terms = {n: v for n, v in metrics.items()
+                              if n not in ("loss", "skipped")}
+                if float(metrics["skipped"]) > 0:
+                    self._log(f"[{t_iter}] WARNING: non-finite gradients, "
+                              "update skipped")
+                render = None
+            elif k == 1:
                 frame = frames[0]
                 batch = {"rgb": self.images[frame], "mask": self.masks[frame],
                          "idx": frame,
@@ -540,20 +664,25 @@ class Trainer:
                 terms = "".join(
                     f" {n.replace('photo_', '')}={float(v):.3f}"
                     for n, v in sorted(last_terms.items()))
-                print(f"[{t_iter:6d}] loss={float(last_loss):.4f} "
-                      f"n_gs={n_alive / 1000:.1f}K "
-                      f"({steps_since_log / max(dt, 1e-9):.2f} it/s)"
-                      f"{terms}", flush=True)
+                self._log(f"[{t_iter:6d}] loss={float(last_loss):.4f} "
+                          f"n_gs={n_alive / 1000:.1f}K "
+                          f"({steps_since_log / max(dt, 1e-9):.2f} it/s)"
+                          f"{terms}")
                 t0 = time.time()
                 steps_since_log = 0
 
             last_t = t_iter + k - 1
             self._periodic_check(last_t, render)
             self._adjust_density(last_t)
+            if self.mesh is not None and self._is_event(last_t):
+                self._sync_from_rank0(self.mesh.group)
             self.step += k
 
-        self.save_ckpt("final")
-        return self.validate("final")
+        result = None
+        if self.io_rank:
+            self.save_ckpt("final")
+            result = self.validate("final")
+        return broadcast_object(result, _world_group())
 
     def _is_event(self, t: int) -> bool:
         """True when step t triggers host-side work after it runs
@@ -579,17 +708,28 @@ class Trainer:
         return False
 
     def _periodic_check(self, t_iter: int, render) -> None:
+        """Checkpoint, validation, animation and visualisation when due
+        (rank 0's; the other ranks wait at a barrier), then the SH
+        schedule (every rank)."""
         cfg = self.cfg
-        if t_iter > 0 and t_iter % cfg.train.save_ckpt_interval == 0:
-            self.save_ckpt(f"{t_iter:06d}")
-        if t_iter > 0 and t_iter % cfg.train.val_interval == 0:
-            self.validate(f"{t_iter:06d}")
-        if (self.anim_dataset is not None and t_iter > 0
-                and t_iter % cfg.train.anim_interval == 0):
-            self.animate_chunk(iter_s=f"{t_iter:06d}", max_frames=32,
-                               save_video=False)
-        if t_iter > 0 and t_iter % cfg.train.viz_interval == 0:
-            self.visualize(f"{t_iter:06d}")
+        due = t_iter > 0 and [
+            t_iter % cfg.train.save_ckpt_interval == 0,
+            t_iter % cfg.train.val_interval == 0,
+            self.anim_dataset is not None
+            and t_iter % cfg.train.anim_interval == 0,
+            t_iter % cfg.train.viz_interval == 0]
+        if due and self.io_rank:
+            if due[0]:
+                self.save_ckpt(f"{t_iter:06d}")
+            if due[1]:
+                self.validate(f"{t_iter:06d}")
+            if due[2]:
+                self.animate_chunk(iter_s=f"{t_iter:06d}", max_frames=32,
+                                   save_video=False)
+            if due[3]:
+                self.visualize(f"{t_iter:06d}")
+        if due and any(due):
+            barrier(_world_group())
         if t_iter % 1000 == 0 and t_iter > 0:
             if self.active_sh_degree < self.cfg.human.sh_degree:
                 self.active_sh_degree += 1
@@ -673,7 +813,7 @@ class Trainer:
                 edge_capacity=self.avatar_cfg.edge_capacity)
             if res.changed:
                 prune_flag = True
-                print(f"[density] prune -> {res.num_alive} gaussians")
+                self._log(f"[density] prune -> {res.num_alive} gaussians")
                 self._apply_density_result(res)
 
         if (dc["densify_from_iter"] <= t_iter < dc["densify_until_iter"]
@@ -695,7 +835,7 @@ class Trainer:
                 face_capacity=self.avatar_cfg.face_capacity,
                 edge_capacity=self.avatar_cfg.edge_capacity)
             if res.changed:
-                print(f"[density] densify -> {res.num_alive} gaussians")
+                self._log(f"[density] densify -> {res.num_alive} gaussians")
                 new_mask = res.changed_slots > 0.5
                 self._apply_density_result(res)
                 self._rescale_new_scales(new_mask, fwd)

@@ -1,5 +1,5 @@
 """Simultaneous multi-case training pool (port of
-sings_tpu/train/trainer_cases.py, on one card).
+sings_tpu/train/trainer_cases.py).
 
 C independent avatar cases train in lockstep: one call of the case step
 (dist/train_cases.py) updates every case, while the host-side work
@@ -8,7 +8,11 @@ density control, laplacian rebuilds) runs per case between calls with
 the single-case Trainer's semantics: the pool owns one Trainer per case
 and unstacks the stacked state into them only at event steps. The JAX
 package runs the cases over a (case, gs) device mesh; the port runs
-them one after another on the one card (gs = 1).
+them one after another, on one card (gs = 1) or, at gs > 1, on each of
+the gs ranks of a torch.distributed process group, which splits every
+case's step into image strips and gaussian shards (make_case_mesh).
+Rank 0 alone writes; every event ends with each case's state from rank
+0 on every rank.
 
 Requirements across cases (checked): the same recipe (schedules, loss
 weights), image resolution, body template and capacity. Frame counts
@@ -24,8 +28,7 @@ Deviations from the JAX signatures:
     the case's seed and its index (JAX folds the case index into one
     pool key);
   * laplacian.type cotangent and tpu.laplacian_backend banded raise
-    (JAX's pool fails there too: its stacking reads the gather tables),
-    and gs > 1 raises until the gs axis is ported.
+    (JAX's pool fails there too: its stacking reads the gather tables).
 """
 from __future__ import annotations
 
@@ -35,10 +38,12 @@ import time
 import numpy as np
 import torch
 
+from ..dist.collectives import broadcast_object, world_rank
 from ..dist.train_cases import (
-    GS_TODO, camera_arrays, make_case_train_step, pick_case, shard_cases,
-    stack_cases,
+    camera_arrays, make_case_mesh, make_case_train_step, pick_case,
+    shard_cases, stack_cases,
 )
+from ..losses.regularizers import shard_region_laplacian
 
 # the frame streams' seed stride between cases (JAX's)
 CASE_SEED_STRIDE = 7919
@@ -60,10 +65,8 @@ def case_frame_count(cfg, kit=None) -> int:
     return n if max_frames is None else min(n, int(max_frames))
 
 
-def check_case_cfg(cfg, gs: int) -> None:
+def check_case_cfg(cfg) -> None:
     """What the pool cannot run, refused before any Trainer is built."""
-    if gs != 1:
-        raise NotImplementedError(f"gs={gs}: {GS_TODO}")
     mesh = dict(cfg.tpu.get("mesh", {}) or {})
     if int(mesh.get("dp", 1) or 1) * int(mesh.get("gs", 1) or 1) > 1:
         raise ValueError("tpu.mesh and simultaneous cases are exclusive - "
@@ -91,7 +94,10 @@ class CasePool:
         if len(kits) != len(cfgs):
             raise ValueError(f"{len(kits)} kits for {len(cfgs)} cases")
         for cfg in cfgs:
-            check_case_cfg(cfg, gs)
+            check_case_cfg(cfg)
+        # the gs ranks that split every case's step (refused before any
+        # Trainer is built without a process group of gs ranks)
+        self.mesh = make_case_mesh(len(cfgs), gs)
         # size the shared per-frame parameter axis before building any
         # Trainer, so checkpoint shapes are stable across runs
         f_max = max(case_frame_count(cfg, kit)
@@ -123,10 +129,11 @@ class CasePool:
 
         lpips = (t0.lpips_params
                  if float(t0.cfg.human.loss.lpips_w) > 0 else None)
+        self.gs = gs
         self.step_fn = make_case_train_step(
             t0.avatar_cfg, t0.step_cfg, t0.template, t0.camera.height,
-            t0.camera.width, t0.tx, lpips, t0.raster_kw, gs=gs)
-        self.gs = gs
+            t0.camera.width, t0.tx, lpips, t0.raster_kw, gs=gs,
+            mesh=self.mesh)
         # one step generator per case: cases that share a seed draw apart
         self.generators = [
             torch.Generator(device=self.device).manual_seed(
@@ -141,6 +148,7 @@ class CasePool:
         self._caches = shard_cases(stack_cases(
             [t.cache for t in self.trainers]), self.device)
 
+        self._sync_from_rank0()
         self._unify_laps()
         self._stack_state()
 
@@ -177,7 +185,25 @@ class CasePool:
         self._params = sc([t.params for t in ts])
         self._buffers = sc([t.buffers for t in ts])
         self._opt = sc([t.opt_state for t in ts])
-        self._rlap = sc([t.region_lap for t in ts])
+        if self.mesh is None:
+            self._rlap = sc([t.region_lap for t in ts])
+            return
+        # this rank's laplacian rows of every case, one transposed-table
+        # width across cases so that they stack
+        srls = [shard_region_laplacian(t.region_lap, self.gs) for t in ts]
+        dt = max(x.t_neighbors.shape[-1] for x in srls)
+        srls = [x if x.t_neighbors.shape[-1] == dt else
+                shard_region_laplacian(t.region_lap, self.gs,
+                                       pad_t_width_to=dt)
+                for x, t in zip(srls, ts)]
+        self._rlap = stack_cases([x.shard(self.mesh.gs_idx) for x in srls])
+
+    def _sync_from_rank0(self):
+        """Every case's state from rank 0 (gs > 1, Trainer.
+        _sync_from_rank0)."""
+        if self.mesh is not None:
+            for t in self.trainers:
+                t._sync_from_rank0(self.mesh.group)
 
     def _unstack_state(self, t_iter: int):
         for c, t in enumerate(self.trainers):
@@ -202,8 +228,10 @@ class CasePool:
         t0 = ts[0]
         num_steps = int(t0.cfg.train.num_steps)
         names = [t.kit.name for t in ts]
-        print(f"[pool] {len(ts)} cases {names} on one device (case="
-              f"{len(ts)}, gs={self.gs}), one case step after another")
+        io = world_rank() == 0
+        if io:
+            print(f"[pool] {len(ts)} cases {names} (case={len(ts)}, "
+                  f"gs={self.gs}), one case step after another")
         log_every, steps_since_log, tlog = 50, 0, time.time()
 
         while self.step < num_steps:
@@ -224,13 +252,13 @@ class CasePool:
                 t0.lap_pos_w, t0.lap_color_w)
 
             skipped = metrics["skipped"].cpu().numpy()
-            if skipped.any():
+            if skipped.any() and io:
                 bad = [n for n, s in zip(names, skipped) if s > 0]
                 print(f"[{t_iter}] WARNING: non-finite gradients, update "
                       f"skipped for {bad}")
 
             steps_since_log += 1
-            if steps_since_log >= log_every:
+            if steps_since_log >= log_every and io:
                 losses = metrics["loss"].cpu().numpy().round(4).tolist()
                 n_gs = self._buffers.alive.sum(dim=1).cpu().numpy().astype(
                     int).tolist()
@@ -250,15 +278,18 @@ class CasePool:
                 if (t_iter % 1000 == 0 and t_iter > 0
                         and self.active_sh_degree < t0.cfg.human.sh_degree):
                     self.active_sh_degree += 1
+                self._sync_from_rank0()
                 self._unify_laps()
                 self._stack_state()
             self.step += 1
 
         self._unstack_state(num_steps)
         results = {}
-        for c, t in enumerate(ts):
-            t.save_ckpt("final")
-            key = t.kit.name if t.kit.name not in results else (
-                f"{t.kit.name}#{c}")
-            results[key] = t.validate("final")
-        return results
+        if io:
+            for c, t in enumerate(ts):
+                t.save_ckpt("final")
+                key = t.kit.name if t.kit.name not in results else (
+                    f"{t.kit.name}#{c}")
+                results[key] = t.validate("final")
+        return broadcast_object(results, None if self.mesh is None
+                                else self.mesh.group)

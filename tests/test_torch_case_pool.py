@@ -206,7 +206,8 @@ def test_case_pool_refusals(tmp_path, extra, err, match):
     cfgs = [_case_cfg(tmp_path, 0), _case_cfg(tmp_path, 1, extra)]
     with pytest.raises(err, match=match):
         CasePool(cfgs, device="cpu", kits=[_tiny_kit(4), _tiny_kit(4)])
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    # gs > 1 needs a process group of gs ranks (tests/test_torch_dist_gs2)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         CasePool(cfgs[:1], gs=2, device="cpu", kits=[_tiny_kit(4)])
 
 
@@ -281,7 +282,7 @@ def test_train_batch_simultaneous(tmp_path):
         assert os.path.exists(os.path.join(d, "ckpt", "human_final.npz"))
         assert os.path.exists(os.path.join(d, "showcase.splat"))
         assert np.isfinite(res[name]["psnr"])
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         train_batch.main(CLI_BASE + ["--simultaneous", "--gs", "2",
                                      "--cases", "a"] + _cli_opts(tmp_path),
                          kits=_kits("a"))

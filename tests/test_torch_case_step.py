@@ -17,7 +17,8 @@ params rtol 1e-3 / atol 1e-4 of the largest; xyz_grad_accum rtol 3e-3 /
 atol 1e-4 of the largest). Then the case step with a config that says
 knn_backend window (the case step's statistic stays the exact one, as
 JAX's does), the port's case step against its own single-card step per
-case bit for bit, and the gs refusal.
+case bit for bit, and gs > 1 refused without a process group of gs
+ranks (tests/test_torch_dist_gs2.py runs it on one).
 """
 import jax
 import jax.numpy as jnp
@@ -269,6 +270,9 @@ def test_camera_arrays_round_trip():
 
 
 def test_case_step_refuses_gs():
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    """gs > 1 splits each case over a process group of gs ranks (run in
+    tests/test_torch_dist_gs2.py); without one it raises."""
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         tcases.make_case_train_step(None, None, None, HW, HW, None, None,
                                     {}, gs=2)
+    assert tcases.make_case_mesh(2, 1) is None

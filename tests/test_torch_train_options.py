@@ -146,11 +146,14 @@ def test_trainer_refuses_norm_laplacian(tmp_path):
 
 
 def test_trainer_refuses_the_mesh(tmp_path):
-    """The sharded (dp, gs) step is not ported: tpu.mesh raises rather
-    than train on one card."""
+    """tpu.mesh needs one process per rank: a mesh of dp * gs ranks in a
+    process without a process group of that size raises (the JAX
+    package's "only N available"), as does a gs that does not divide the
+    image height. The mesh itself runs in tests/test_torch_dist_*.py."""
     from sings_tpu_torch.train.trainer import Trainer
 
-    cfg = _tiny_trainer_cfg(tmp_path, ["tpu.mesh.dp=2", "tpu.mesh.gs=1",
-                                       "train.init_steps=0"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
+    for mesh in (["tpu.mesh.dp=2", "tpu.mesh.gs=1"],
+                 ["tpu.mesh.dp=1", "tpu.mesh.gs=4"]):
+        cfg = _tiny_trainer_cfg(tmp_path, mesh + ["train.init_steps=0"])
+        with pytest.raises(ValueError, match="process group has 1"):
+            Trainer(cfg, mode="train", device="cpu", kit=_tiny_kit())
