@@ -1,0 +1,8 @@
+"""Summed device time of every kernel, copy and memset in the traced
+window, per animation frame."""
+
+
+def read(run):
+    if not run.units:
+        return None
+    return 1e3 * run.trace.kernel_s() / run.units
