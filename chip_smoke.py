@@ -165,8 +165,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 statistics, the tables' host build times;
                 rasterize_multi of two avatars bit for bit one rasterize
                 of their concatenation in one composite_fwd launch; one
-                chunk under ops/profiling.trace with annotate ranges,
-                each in the exported trace, and its kernels' device time
+                chunk under ops/profiling.trace with span ranges, each
+                and the program's own spans (the backward's on autograd's
+                thread) in the exported trace, and its kernels' device time
  18 cases      (run after phase 16, on phase 7's trainer) multi-case
                 training: one make_case_train_step call on two cases
                 (phase 7's state and its perturbed copy) at step 2000
@@ -3762,19 +3763,22 @@ def run_options(work: str, dev, smi: str, profile_dir: str | None) -> None:
     del multi, single, out
 
     # ---- 17.5 one chunk under ops/profiling.trace
-    names = ("options_chunk", "options_readback")
+    names = ("options_chunk", "options_readback", "step.draws",
+             "step.decode", "step.rasterize", "step.losses", "step.backward",
+             "step.update", "raster.bin", "raster.composite_bwd",
+             "triplane.bwd")
     trace_dir = os.path.join(work, "options_trace")
     with profiling.trace(trace_dir):
         for _ in range(PREAMBLE):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        with profiling.annotate(names[0]):
+        with profiling.span(names[0]):
             res = tr.train_scan(tr.params, tr.buffers, tr.opt_state,
                                 tr.cache, batches, tr.step_generator,
                                 TRAIN_STEP0, tr.active_sh_degree,
                                 tr.region_lap, tr.region_lap, tr.lap_pos_w,
                                 tr.lap_color_w)
-        with profiling.annotate(names[1]):
+        with profiling.span(names[1]):
             res[3].cpu()
     with open(os.path.join(trace_dir, "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]

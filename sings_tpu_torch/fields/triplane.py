@@ -36,6 +36,7 @@ import torch
 
 from ..ops import grid_grad as GG
 from ..ops.bilinear import _combine, _corner_coords, _corner_table, _weights
+from ..ops.profiling import span
 from ..ops.sampling import _sample_main, grid_sample_2d
 
 
@@ -170,8 +171,9 @@ class _Triplane(torch.autograd.Function):
         q, *rest = ctx.saved_tensors
         p = len(ctx.meta)
         saved = GG.Saved(rest[p:2 * p], rest[2 * p:], ctx.layout)
-        dq, dgrids = GG.triplane_backward(ctx.meta, q, rest[:p], saved,
-                                          gout)
+        with span("triplane.bwd"):
+            dq, dgrids = GG.triplane_backward(ctx.meta, q, rest[:p], saved,
+                                              gout)
         needs = ctx.needs_input_grad
         return (None, dq if needs[1] else None,
                 *(g if need else None for g, need in zip(dgrids, needs[2:])))

@@ -1,23 +1,62 @@
-"""Profiling and tracing (port of sings_tpu/ops/profiling.py).
+"""The port's tracing: named spans at its layer boundaries, and an
+exporter of torch.profiler traces.
 
+  * span(name): a torch.profiler.record_function range while a torch
+    profiler runs, else one shared no-op context (no allocation, no
+    dispatcher call). The ranges sit in the profiler's own session, on
+    the clock of its device records: each kernel's launch falls inside
+    the span that issued it (the ranges of a backward open on autograd's
+    device thread). There is no switch: spans are on exactly when
+    someone profiles.
   * trace(log_dir): a torch.profiler session (CPU activity, and CUDA
     activity when a card is present) that writes a Chrome trace,
-    trace.json, into log_dir on exit;
-  * annotate(name): torch.profiler.record_function, a named range of
-    the host's work (and the kernels it launches) inside a trace;
-  * StepTimer: the steady-state wall time of a step after `warmup`
-    steps, and the Mpix/s that bench.py reports. On exit it waits for
-    the card (torch.cuda.synchronize when a card is present), so that a
-    step's time holds its kernels: the JAX timer stops when the host
-    returns from dispatch.
+    log_dir/trace.json, on exit. Wrap any call in it to see the spans
+    below among the host's operations and the card's kernels.
+
+The spans (dotted names, so that they never equal a caller's own
+ranges):
+
+  step.knn_stat         train/step.py::make_train_scan, the chunk head's
+                        KNN statistic
+  step.draws            train/step.py train_step: the step's random
+                        draws, where the caller passes none
+  step.decode           train_step: the SH mask, the screen probe,
+                        avatar_forward and the warm-up gates
+  step.rasterize        the step's rasterize call
+  step.losses           photometric, silhouette and regularizer terms
+  step.backward         torch.autograd.grad and the zero fill
+  step.update           the finite guard, Adam, the kept state, the
+                        density statistics and the metrics
+  raster.preprocess     ops/rasterizer/api.py::rasterize: preprocess and
+                        the screen probe
+  raster.bin            prepare_composite: bin_gaussians
+  raster.gather         prepare_composite: the pair features
+  raster.composite_fwd  _Composite.forward: the launch and the relayout
+  raster.composite_bwd  _Composite.backward: the cotangents' relayout
+                        and the launch
+  raster.unsort         _Composite.backward: unsort_pair_grads
+  triplane.bwd          fields/triplane.py::_Triplane.backward
+  anim.pose             train/trainer.py::render_chunk: pose_chunk
+  anim.frame            render_chunk, once a frame: rasterize, quantize
+  anim.readback         animate_chunk: a chunk's copy to the host
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named range of the host's work and the kernels it launches,
+    recorded while a torch profiler runs; the shared no-op otherwise."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -36,36 +75,3 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def annotate(name: str):
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Rolling wall-clock timer with warm-up exclusion."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.count = 0
-        self.total = 0.0
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - self._t0
-        self.count += 1
-        if self.count > self.warmup:
-            self.total += dt
-
-    @property
-    def mean_s(self) -> float:
-        return self.total / max(self.count - self.warmup, 1)
-
-    def mpix_s(self, height: int, width: int) -> float:
-        return height * width / max(self.mean_s, 1e-12) / 1e6

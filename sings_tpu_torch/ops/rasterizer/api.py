@@ -2,15 +2,16 @@
 
 rasterize() = preprocess (autograd) -> bin_gaussians -> _gather_feats ->
 composite kernel (CUDA on the card, plain version on the CPU) -> crop ->
-background blend. The composite is an autograd.Function whose backward
-is the matching backward kernel: it writes per-pair gradients into the
-aligned buffer, and the 9 used rows are un-sorted back to gaussians
-with the main_slot / tail_slot / tail_of_gauss gathers of
-bin_gaussians. The forward kernel always walks through the window-entry
-state (grad_cap x 32 bytes): its windows hand each other their entry in
-it. When a backward can follow (grad mode on and an input that requires
-grad), the forward keeps it for the backward, which starts each window
-from it; a render under no_grad drops it with the forward.
+background blend, each stage in an ops/profiling.py span (raster.*).
+The composite is an autograd.Function whose backward is the matching
+backward kernel: it writes per-pair gradients into the aligned buffer,
+and the 9 used rows are un-sorted back to gaussians with the main_slot
+/ tail_slot / tail_of_gauss gathers of bin_gaussians. The forward
+kernel always walks through the window-entry state (grad_cap x 32
+bytes): its windows hand each other their entry in it. When a backward
+can follow (grad mode on and an input that requires grad), the forward
+keeps it for the backward, which starts each window from it; a render
+under no_grad drops it with the forward.
 
 Two layouts, as in the JAX package (RasterConfig.layout):
   * "tiled": composite_fwd writes (T, 8, npx) tile rows, relaid out to
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..graphics import Camera
+from ..profiling import span
 from .common import Gaussians2D, preprocess
 from .kernels import (
     N_USED, NFEAT, composite_bwd, composite_fwd, panel_width,
@@ -90,14 +92,16 @@ def prepare_composite(g2d: Gaussians2D, cfg: RasterConfig,
                       valid_rows=None):
     """Binning + pair features: the composite kernel's inputs."""
     ntx, nty = _pad_tiles(cfg)
-    binning = bin_gaussians(
-        g2d, tile=cfg.tile, n_tiles_x=ntx, n_tiles_y=nty,
-        max_span=cfg.max_span, align=cfg.chunk, max_pairs=cfg.max_pairs,
-        main_width=cfg.main_width, tail_capacity=cfg.tail_capacity,
-        cull=cfg.cull, pair_cap=cfg.pair_cap,
-        valid_tiles_y=valid_tiles_y(cfg, valid_rows))
-    feats = _gather_feats(binning, g2d.means2d, g2d.conics, g2d.colors,
-                          g2d.opacities, cfg.chunk)
+    with span("raster.bin"):
+        binning = bin_gaussians(
+            g2d, tile=cfg.tile, n_tiles_x=ntx, n_tiles_y=nty,
+            max_span=cfg.max_span, align=cfg.chunk, max_pairs=cfg.max_pairs,
+            main_width=cfg.main_width, tail_capacity=cfg.tail_capacity,
+            cull=cfg.cull, pair_cap=cfg.pair_cap,
+            valid_tiles_y=valid_tiles_y(cfg, valid_rows))
+    with span("raster.gather"):
+        feats = _gather_feats(binning, g2d.means2d, g2d.conics, g2d.colors,
+                              g2d.opacities, cfg.chunk)
     return feats, binning
 
 
@@ -160,20 +164,22 @@ class _Composite(torch.autograd.Function):
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
                   n_tiles_y=nty,
                   pw=cfg.panel_width if cfg.layout == "panel" else None)
-        # the kernel's windows hand each other their entry state through
-        # the gradient buffer's window layout on every call; the state is
-        # kept only for a backward
-        res = composite_fwd(
-            feats, binning.tile_offsets, grad_offsets=binning.grad_offsets,
-            grad_cap=binning.pair_slot_capacity, return_state=want_state,
-            **kw)
-        out, state = res if want_state else (res, None)
-        if cfg.layout == "panel":
-            # (4, Hp, Wp) image planes: a crop, no relayout
-            color = out[:3, : cfg.height, : cfg.width]
-            t_final = out[3, : cfg.height, : cfg.width]
-        else:
-            color, t_final = tiles_to_image(out, cfg)
+        with span("raster.composite_fwd"):
+            # the kernel's windows hand each other their entry state
+            # through the gradient buffer's window layout on every call;
+            # the state is kept only for a backward
+            res = composite_fwd(
+                feats, binning.tile_offsets,
+                grad_offsets=binning.grad_offsets,
+                grad_cap=binning.pair_slot_capacity,
+                return_state=want_state, **kw)
+            out, state = res if want_state else (res, None)
+            if cfg.layout == "panel":
+                # (4, Hp, Wp) image planes: a crop, no relayout
+                color = out[:3, : cfg.height, : cfg.width]
+                t_final = out[3, : cfg.height, : cfg.width]
+            else:
+                color, t_final = tiles_to_image(out, cfg)
         ctx.cfg = cfg
         ctx.binning = binning
         ctx.has_state = want_state
@@ -191,18 +197,19 @@ class _Composite(torch.autograd.Function):
         kw = dict(tile=cfg.tile, chunk=cfg.chunk, n_tiles_x=ntx,
                   n_tiles_y=nty, grad_cap=binning.pair_slot_capacity)
         args = (feats, binning.tile_offsets, binning.grad_offsets, out)
-        if cfg.layout == "panel":
-            gout = g_color.new_zeros(out.shape)
-            gout[:3, : cfg.height, : cfg.width] = g_color
-            gout[3, : cfg.height, : cfg.width] = g_t
-            pair_grads = composite_bwd(*args, gout, state,
-                                       pw=cfg.panel_width, **kw)
-        else:
-            pair_grads = composite_bwd(*args, image_to_tiles(g_color, g_t,
-                                                             cfg), state,
-                                       **kw)
-        pg = unsort_pair_grads(pair_grads, binning,
-                               binning.tail_of_gauss.shape[0])
+        with span("raster.composite_bwd"):
+            if cfg.layout == "panel":
+                gout = g_color.new_zeros(out.shape)
+                gout[:3, : cfg.height, : cfg.width] = g_color
+                gout[3, : cfg.height, : cfg.width] = g_t
+                pair_grads = composite_bwd(*args, gout, state,
+                                           pw=cfg.panel_width, **kw)
+            else:
+                pair_grads = composite_bwd(
+                    *args, image_to_tiles(g_color, g_t, cfg), state, **kw)
+        with span("raster.unsort"):
+            pg = unsort_pair_grads(pair_grads, binning,
+                                   binning.tail_of_gauss.shape[0])
         return (None, None, None, pg[:, 0:2], pg[:, 2:5], pg[:, 5:8],
                 pg[:, 8], None, None, None)
 
@@ -235,13 +242,15 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
     """
     if bg is None:
         bg = means3d.new_zeros(3)
-    g2d = preprocess(means3d, scales, quats, opacities, features, camera,
-                     sh_degree=sh_degree, scale_modifier=scale_modifier,
-                     alive=alive, tile=tile)
-    if screen_probe is not None:
-        probe = torch.stack([screen_probe[:, 0] * (0.5 * camera.width),
-                             screen_probe[:, 1] * (0.5 * camera.height)], -1)
-        g2d = g2d._replace(means2d=g2d.means2d + probe)
+    with span("raster.preprocess"):
+        g2d = preprocess(means3d, scales, quats, opacities, features, camera,
+                         sh_degree=sh_degree, scale_modifier=scale_modifier,
+                         alive=alive, tile=tile)
+        if screen_probe is not None:
+            probe = torch.stack(
+                [screen_probe[:, 0] * (0.5 * camera.width),
+                 screen_probe[:, 1] * (0.5 * camera.height)], -1)
+            g2d = g2d._replace(means2d=g2d.means2d + probe)
     if backend == "pallas":
         cfg = RasterConfig(
             height=camera.height, width=camera.width, tile=tile,

@@ -59,7 +59,11 @@ def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
                   pair_cap: int | None = None,
                   valid_tiles_y: torch.Tensor | None = None) -> TileBinning:
     """Depth-ordered, tile-grouped pair lists (see module docstring).
-    Runs without a host synchronisation: every shape is static."""
+    Every output shape is static, but the host waits for the card four
+    times a call: the boolean-mask indexings starts[keep], deltas[keep]
+    (the slot shifts) and sf[real], slot[real] (the pair-slot inverse)
+    each run a nonzero whose size the host reads back. The benchmark's
+    host_syncs_per_frame.anim counts them."""
     dev = g.means2d.device
     i64 = torch.int64
     n = g.means2d.shape[0]

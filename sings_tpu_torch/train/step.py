@@ -16,9 +16,17 @@ masked patches, its gradient by autograd through the VGG features.
 The step number is a Python int here (the JAX step traces it), so the
 warmup gates, the laplacian ramp and the opacity-norm switch are
 decided on the host; the non-finite guard stays on the device
-(torch.where), so a step never waits for the card. Every random draw
-of a step comes from losses.photometric.draw_step_randoms; a step also
-takes the draws as an argument.
+(torch.where), so it never makes the step wait for the card (the
+binning's boolean-mask indexings do, ops/rasterizer/tiles.py::
+bin_gaussians, and so do the decode's copies of host data to the card,
+e.g. kinematics/lbs.py::batch_rigid_transform's tables). Every random
+draw of a step comes from losses.photometric.draw_step_randoms; a step
+also takes the draws as an argument.
+
+Each stage runs in an ops/profiling.py span that a profiler records:
+step.knn_stat at the chunk head, then step.draws (where the step draws
+its own randoms), step.decode, step.rasterize, step.losses,
+step.backward and step.update in every step.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from ..losses.regularizers import (
 )
 from ..model.avatar import AvatarBuffers, AvatarConfig, avatar_forward
 from ..ops.graphics import Camera
+from ..ops.profiling import span
 from ..ops.rasterizer.api import rasterize
 from ..tree import tree_leaves, tree_map
 
@@ -176,39 +185,35 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
         dev = buffers.alive.device
         cam = built_camera if camera is None else camera
         if draws is None:
-            draws = draw_step_randoms(generator, batch["mask"],
-                                      w.photometric)
+            with span("step.draws"):
+                draws = draw_step_randoms(generator, batch["mask"],
+                                          w.photometric)
         bg = draws["bg"]
         opt_geo = step >= step_cfg.opt_geo_from
         opt_app = step >= step_cfg.opt_app_from
-        deg_mask = sh_degree_mask(active_sh_degree, dev)
+        with span("step.decode"):
+            deg_mask = sh_degree_mask(active_sh_degree, dev)
 
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        probe = torch.zeros((avatar_cfg.capacity, 2), device=dev,
-                            requires_grad=True)
-        out = avatar_forward(p, buffers, avatar_cfg, template, cache,
-                             smpl_scale=batch.get("smpl_scale"),
-                             dataset_idx=batch["idx"])
-        for k in ("xyz_canon", "xyz_offsets", "scales", "scales_canon"):
-            out[k] = _gate_grad(out[k], opt_geo)
-        for k in ("shs", "opacity"):
-            out[k] = _gate_grad(out[k], opt_app)
+            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            probe = torch.zeros((avatar_cfg.capacity, 2), device=dev,
+                                requires_grad=True)
+            out = avatar_forward(p, buffers, avatar_cfg, template, cache,
+                                 smpl_scale=batch.get("smpl_scale"),
+                                 dataset_idx=batch["idx"])
+            for k in ("xyz_canon", "xyz_offsets", "scales", "scales_canon"):
+                out[k] = _gate_grad(out[k], opt_geo)
+            for k in ("shs", "opacity"):
+                out[k] = _gate_grad(out[k], opt_app)
 
-        shs = out["shs"] * deg_mask[None, :, None]
-        pkg = rasterize(out["xyz"], out["scales"], out["rotq"],
-                        out["opacity"][:, 0], shs, cam, sh_degree=3,
-                        bg=bg, alive=buffers.alive > 0.5, screen_probe=probe,
-                        backend="pallas", **raster_kw)
+        with span("step.rasterize"):
+            shs = out["shs"] * deg_mask[None, :, None]
+            pkg = rasterize(out["xyz"], out["scales"], out["rotq"],
+                            out["opacity"][:, 0], shs, cam, sh_degree=3,
+                            bg=bg, alive=buffers.alive > 0.5,
+                            screen_probe=probe, backend="pallas",
+                            **raster_kw)
         # no clamp: the losses read the raw render
         render = pkg["render"]
-        photo, photo_d = photometric_loss(draws, render, batch["rgb"],
-                                          batch["mask"], bg, w.photometric,
-                                          lpips_fn)
-        if w.silhouette != 0:
-            sil = 1.0 - pkg["transmittance"]
-            l_sil = torch.mean((sil - batch["mask"]) ** 2)
-            photo = photo + w.silhouette * l_sil
-            photo_d = dict(photo_d, sil=w.silhouette * l_sil)
 
         def connect_fn(xyz_canon, scales, alive):
             if edge_stat is not None:
@@ -218,56 +223,69 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                 backend=("dense" if step_cfg.knn_backend == "chunk"
                          else step_cfg.knn_backend))
 
-        r = regularizer_terms(step_cfg, out, buffers, step, region_lap_pos,
-                              region_lap_color, lap_pos_w, lap_color_w,
-                              connect_fn)
-        reg, edge, connect = r["reg_l2"], r["mesh_edge"], r["connect"]
-        lap_pos_loss, lap_color_loss = r["lap_pos"], r["lap_color"]
-        hand_lap = r["hand_lap"]
+        with span("step.losses"):
+            photo, photo_d = photometric_loss(draws, render, batch["rgb"],
+                                              batch["mask"], bg,
+                                              w.photometric, lpips_fn)
+            if w.silhouette != 0:
+                sil = 1.0 - pkg["transmittance"]
+                l_sil = torch.mean((sil - batch["mask"]) ** 2)
+                photo = photo + w.silhouette * l_sil
+                photo_d = dict(photo_d, sil=w.silhouette * l_sil)
 
-        total = (photo + reg + edge + connect + lap_pos_loss
-                 + lap_color_loss + hand_lap)
+            r = regularizer_terms(step_cfg, out, buffers, step,
+                                  region_lap_pos, region_lap_color,
+                                  lap_pos_w, lap_color_w, connect_fn)
+            reg, edge, connect = r["reg_l2"], r["mesh_edge"], r["connect"]
+            lap_pos_loss, lap_color_loss = r["lap_pos"], r["lap_color"]
+            hand_lap = r["hand_lap"]
 
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(total, leaves + [probe],
-                                    allow_unused=True)
-        grads = _zeros_for_none(grads, leaves + [probe])
-        probe_grad = grads.pop()
-        it = iter(grads)
-        grad_tree = tree_map(lambda _: next(it), p)
+            total = (photo + reg + edge + connect + lap_pos_loss
+                     + lap_color_loss + hand_lap)
 
-        # non-finite guard: skip the whole update (params and moments)
-        finite = torch.isfinite(total.detach())
-        for g in grads:
-            finite = finite & torch.isfinite(g).all()
-        new_params, new_state = tx.update(grad_tree, opt_state, params)
+        with span("step.backward"):
+            leaves = tree_leaves(p)
+            grads = torch.autograd.grad(total, leaves + [probe],
+                                        allow_unused=True)
+            grads = _zeros_for_none(grads, leaves + [probe])
+            probe_grad = grads.pop()
+            it = iter(grads)
+            grad_tree = tree_map(lambda _: next(it), p)
 
-        def keep(new, old):
-            return torch.where(finite, new.detach(), old)
+        with span("step.update"):
+            # non-finite guard: skip the whole update (params and moments)
+            finite = torch.isfinite(total.detach())
+            for g in grads:
+                finite = finite & torch.isfinite(g).all()
+            new_params, new_state = tx.update(grad_tree, opt_state, params)
 
-        params = tree_map(keep, new_params, params)
-        opt_state = tree_map(keep, new_state, opt_state)
+            def keep(new, old):
+                return torch.where(finite, new.detach(), old)
 
-        # density-control statistics
-        acc = pkg["visibility_filter"] & finite
-        radii = pkg["radii"].to(torch.float32)
-        buffers = buffers._replace(
-            max_radii2d=torch.where(
-                acc, torch.maximum(buffers.max_radii2d, radii),
-                buffers.max_radii2d),
-            xyz_grad_accum=buffers.xyz_grad_accum + torch.where(
-                acc, torch.linalg.norm(probe_grad, dim=-1),
-                torch.zeros_like(buffers.xyz_grad_accum)),
-            grad_denom=buffers.grad_denom + acc.to(torch.float32),
-        )
-        metrics = {
-            "loss": total, "photo": photo, "reg_l2": reg, "mesh_edge": edge,
-            "connect": connect, "lap_pos": lap_pos_loss,
-            "lap_color": lap_color_loss,
-            **{f"photo_{k}": v for k, v in photo_d.items()},
-        }
-        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        metrics["skipped"] = (~finite).to(torch.float32)
+            params = tree_map(keep, new_params, params)
+            opt_state = tree_map(keep, new_state, opt_state)
+
+            # density-control statistics
+            acc = pkg["visibility_filter"] & finite
+            radii = pkg["radii"].to(torch.float32)
+            buffers = buffers._replace(
+                max_radii2d=torch.where(
+                    acc, torch.maximum(buffers.max_radii2d, radii),
+                    buffers.max_radii2d),
+                xyz_grad_accum=buffers.xyz_grad_accum + torch.where(
+                    acc, torch.linalg.norm(probe_grad, dim=-1),
+                    torch.zeros_like(buffers.xyz_grad_accum)),
+                grad_denom=buffers.grad_denom + acc.to(torch.float32),
+            )
+            metrics = {
+                "loss": total, "photo": photo, "reg_l2": reg,
+                "mesh_edge": edge, "connect": connect,
+                "lap_pos": lap_pos_loss, "lap_color": lap_color_loss,
+                **{f"photo_{k}": v for k, v in photo_d.items()},
+            }
+            metrics = {k: torch.as_tensor(v).detach()
+                       for k, v in metrics.items()}
+            metrics["skipped"] = (~finite).to(torch.float32)
         return params, buffers, opt_state, metrics, render.detach()
 
     return train_step
@@ -288,7 +306,10 @@ def make_train_scan(train_step, stat_fn=None):
     def scan_steps(params, buffers, opt_state, cache, batches, generator,
                    step0: int, active_sh_degree: int, region_lap_pos,
                    region_lap_color, lap_pos_w, lap_color_w, draws=None):
-        es = stat_fn(params, buffers) if stat_fn is not None else None
+        es = None
+        if stat_fn is not None:
+            with span("step.knn_stat"):
+                es = stat_fn(params, buffers)
         k = len(batches["idx"])
         per_step = []
         for i in range(k):

@@ -84,6 +84,7 @@ from ..model.avatar import (
     get_canon_xyz, get_gs_attrs, init_avatar, initial_attr_targets,
 )
 from ..model.density import densify_and_subdivide, prune_and_simplify
+from ..ops.profiling import span
 from ..ops.rasterizer.api import rasterize
 from ..ops.rotations import (
     axis_angle_to_matrix, matrix_to_axis_angle, rotation_6d_to_axis_angle,
@@ -1265,15 +1266,17 @@ class Trainer:
     @torch.no_grad()
     def render_chunk(self, gs_attrs: dict, chunk: dict) -> torch.Tensor:
         """(B, H, W, 3) uint8 frames of one padded chunk, on the device."""
-        posed = self.pose_chunk(gs_attrs, chunk)
-        alive = self.buffers.alive > 0.5
+        with span("anim.pose"):
+            posed = self.pose_chunk(gs_attrs, chunk)
+            alive = self.buffers.alive > 0.5
         frames = []
         for b in range(posed["xyz"].shape[0]):
-            pkg = rasterize(
-                *self.frame_gaussians(posed, b), self.anim_dataset.camera,
-                sh_degree=3, bg=self.bg_color, alive=alive,
-                backend="pallas", **self.raster_kw)
-            frames.append(quantize(pkg["render"]))
+            with span("anim.frame"):
+                pkg = rasterize(
+                    *self.frame_gaussians(posed, b),
+                    self.anim_dataset.camera, sh_degree=3, bg=self.bg_color,
+                    alive=alive, backend="pallas", **self.raster_kw)
+                frames.append(quantize(pkg["render"]))
         return torch.stack(frames)
 
     def animate_chunk(self, chunk_size=16, iter_s="final", save_video=True,
@@ -1304,7 +1307,9 @@ class Trainer:
                 nonlocal frames_done
                 while len(pending) > limit:
                     dev_imgs, s0, b0 = pending.pop(0)
-                    res = sink(dev_imgs[:b0].cpu().numpy(), s0)
+                    with span("anim.readback"):
+                        host = dev_imgs[:b0].cpu().numpy()
+                    res = sink(host, s0)
                     encodes.extend(res or [])
                     frames_done += b0
 

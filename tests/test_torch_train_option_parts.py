@@ -8,7 +8,7 @@ and their losses and gradients at those files' tolerances; the LPIPS
 distance's gradient against jax.grad with JAX's own random features,
 on random and on clipped, flat patches (max-pool ties), and the
 tpu.lpips_weights npz path; densify_and_prune_vanilla;
-rasterize_multi; StepTimer, trace and annotate. One training step with
+rasterize_multi; trace and span. One training step with
 each option is in tests/test_torch_train_options.py.
 """
 import jax
@@ -249,7 +249,7 @@ def test_lpips_weights_npz_round_trip(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# vanilla density, rasterize_multi, StepTimer
+# vanilla density, rasterize_multi, trace
 
 
 def test_densify_and_prune_vanilla_matches_jax():
@@ -316,25 +316,19 @@ def test_rasterize_multi_matches_jax():
     assert tk.LAUNCHES["composite_fwd"] == 0  # the plain version on CPU
 
 
-def test_step_timer_arithmetic(monkeypatch):
-    clock = iter([0.0, 1.0, 1.0, 3.0, 3.0, 3.5, 3.5, 4.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    t = profiling.StepTimer(warmup=2)
-    assert t.mean_s == 0.0
-    for _ in range(4):
-        with t:
-            pass
-    # steps of 1, 2 (warm-up), 0.5, 0.5 s
-    assert t.count == 4 and t.total == 1.0 and t.mean_s == 0.5
-    assert t.mpix_s(1000, 500) == 1.0
-
-
 def test_trace_and_annotate_write_named_ranges(tmp_path):
+    """trace() writes a span's range, around the operation it holds,
+    into the Chrome trace."""
     import json
 
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("outer_stage"):
+        with profiling.span("outer_stage"):
             torch.ones(8).sum()
     with open(tmp_path / "trace.json") as fh:
-        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert "outer_stage" in names
+        events = json.load(fh)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "outer_stage"
+              and e.get("cat") == "user_annotation"]
+    assert len(ranges) == 1
+    a, b = ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]
+    ops = [e for e in events if e.get("name") == "aten::sum"]
+    assert ops and all(a <= e["ts"] <= b for e in ops)
