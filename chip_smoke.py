@@ -29,7 +29,7 @@ exp_bwd_variants} at their own sizes. Phases:
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
                 each one kernel for both layouts; composite_bwd_variants.cu,
-                chunk_scan_bench.cu and triplane_bwd.cu) and g++
+                chunk_scan_bench.cu, triplane_bwd.cu and knn_topk.cu) and g++
                 (mesh_native), timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
@@ -72,8 +72,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
                 composite_fwd, composite_bwd and triplane_bwd launches from
-                0 (one each a step), and the forward launches that wrote
-                the state (all of them)
+                0 (one each a step), the forward launches that wrote
+                the state (all of them) and knn_topk's (one a chunk, the
+                chunk head's statistic)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
                 and its bound
  11 entry       the training entry point with layout=panel: the
@@ -212,6 +213,22 @@ exp_bwd_variants} at their own sizes. Phases:
                 environment: a 10-step pre-fit and 4 steps through a prune
                 (removing nothing), a densify and a checkpoint, rank 0
                 alone writing, the ranks' final states bit for bit
+ 20 knn        (run after phase 16, on phase 7's trainer) the exact KNN
+                statistic's kernel, ops/knn.py's csrc/knn_topk.cu, at the
+                avatar's state (its canonical centres, 102,182 live in
+                127,744 slots), on the live centres three times over
+                (exact ties; a tenth invalid, and all valid) and on 1000
+                points with 5 valid (fewer than k), for k 1, 9 and 16,
+                against the torch path (matmul + torch.topk, the plain
+                version's blocks on the card): distances bit for bit or
+                within 2 ulps of sq_i + sq_j, indices apart only among
+                equal distances, ascending, ties by the lower index, two
+                calls bit for bit; knn_rows over the gs-4 split equal to
+                knn's rows; 200 seeded random calls (sizes, masks, k,
+                row ranges, NaN and infinite points), each synchronised;
+                edge_stat within 1e-6 of the torch path's;
+                device_time of the kernel, of edge_stat and of a quarter
+                of the rows, CUDA-event time of the torch path, the bound
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -367,9 +384,10 @@ SEED = 0
 KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
                "composite_bwd_panel": 0.0}
 # the CUDA sources: the composite kernels (each one kernel for both
-# layouts), the experiment kernels and the triplane's grid backward
+# layouts), the experiment kernels, the triplane's grid backward and the
+# exact KNN statistic
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
-           "chunk_scan_bench", "triplane_bwd"]
+           "chunk_scan_bench", "triplane_bwd", "knn_topk"]
 
 
 def log(msg: str) -> None:
@@ -1363,6 +1381,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     from sings_tpu_torch.config.defaults import DEFAULTS
     from sings_tpu_torch.losses.photometric import draw_step_randoms
     from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops import knn as KN
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.train.trainer import Trainer
     from sings_tpu_torch.tree import tree_leaves
@@ -1458,6 +1477,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     p0 = trainer.params
     K.reset_launches()
     GG.reset_launches()
+    KN.reset_launches()
     torch.cuda.synchronize()
     times, all_losses, all_skipped = [], [], []
     for c in range(2):
@@ -1473,13 +1493,18 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
     launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
+    knn_launches = KN.LAUNCHES["knn_topk"]
+    if knn_launches != 2:
+        raise AssertionError(f"the chunk head's statistic launched "
+                             f"knn_topk {knn_launches} times in 2 chunks")
     p, b, o = state
     terms = {name: [round(x, 6) for x in v.cpu().tolist()]
              for name, v in metrics.items()}
     PHASE9_STEPS_PER_S[:] = [k / t for t in times]
     log(f"[train] 16 steps from step {TRAIN_STEP0}: chunk wall "
         f"{times[0]:.3f}s, {times[1]:.3f}s (host clock, steps/s "
-        f"{k / times[0]:.3f}, {k / times[1]:.3f}), launches {launches}")
+        f"{k / times[0]:.3f}, {k / times[1]:.3f}), launches {launches}, "
+        f"knn_topk {knn_launches}")
     log(f"[train] losses {[round(x, 5) for x in all_losses]}")
     log(f"[train] last chunk's terms {terms}")
     if not all(math.isfinite(x) for x in all_losses):
@@ -1543,6 +1568,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         smi, profile_dir)
     if profile_dir:
         profile_train(trainer, batches, bargs, bkw, field_step, profile_dir)
+    # ---- 20 the exact KNN statistic's kernel at this state
+    knn_row = run_knn(trainer, knn_launches, smi)
     # the backward's experiment forms on this frame (phase 14's checks)
     forms_on_frame("phase 7 training frame", bargs, bkw, binning, smi)
     bwd_row = {
@@ -1563,7 +1590,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     # ---- 19 the sharded (dp, gs) step on this trainer
     run_sharded(work, dev, smi, trainer, batches)
     # ---- 11 the training entry point, 12 its timing
-    return [bwd_row, gg_row] + run_entry(work, dev, trainer, batches, smi)
+    return [bwd_row, gg_row, knn_row] + run_entry(work, dev, trainer,
+                                                  batches, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -1836,6 +1864,246 @@ def triplane_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
         return torch.autograd.grad(f, [pts] + leaves, gfeat)
 
     return row, field_step
+
+
+# ---------------------------------------------------------------------------
+# the exact KNN statistic's kernel (phase 20, on phase 7's trainer)
+
+KNN_KS = (1, 9, 16)
+# a distance that is not the torch path's bit for bit is held within this
+# many ulps of sq_i + sq_j (the size the cancellation rounds at)
+KNN_ULPS = 2
+# edge_stat through the kernel against the torch path's, relative
+KNN_STAT_RTOL = 1e-6
+# seeded random calls of the kernel, each synchronised
+KNN_RANDOM_CASES = 200
+# the benchmark's count of the statistic (benchmark/counts/flops.py): 8
+# operations a pair
+KNN_OPS_PER_PAIR = 8
+KNN_REPLACES = ("none: sings_tpu/ops/knn.py::knn, knn_rows (blocked matmul "
+                "+ lax.approx_min_k on the TPU, exact top-k elsewhere; no "
+                "pallas_call)")
+
+
+def knn_torch(points, k: int, valid, row_start: int = 0, rows=None):
+    """The plain version's blocks (matmul + torch.topk) on the card: the
+    library path the kernel replaced, kept here as its yardstick."""
+    from sings_tpu_torch.ops import knn as KN
+
+    rows = points.shape[0] if rows is None else rows
+    sq = KN._sum_squares(points)
+    ds, ids = [], []
+    for s in range(row_start, row_start + rows, 4096):
+        d, i = KN._block_topk(points, sq, slice(s, min(
+            s + 4096, row_start + rows)), k, valid)
+        ds.append(d)
+        ids.append(i)
+    return torch.clamp_min(torch.cat(ds), 0.0), torch.cat(ids)
+
+
+def check_knn(name: str, points, k: int, valid) -> dict:
+    """The kernel (knn_topk_cuda, unclamped, and knn) against the torch
+    path at every row: distances bit for bit or within KNN_ULPS of sq_i
+    + sq_j (count and worst logged), indices equal except among equal
+    distances, the kernel's own order (ascending, ties by the lower
+    index, every index valid, -1 only at +inf), and two calls bit for
+    bit."""
+    from sings_tpu_torch.ops import knn as KN
+
+    n = points.shape[0]
+    rd, ri = KN.knn_topk_cuda(points, k, valid, 0, n)
+    gd, gi = KN.knn(points, k, valid=valid)
+    again = KN.knn(points, k, valid=valid)
+    if not (torch.equal(gd, again[0]) and torch.equal(gi, again[1])):
+        raise AssertionError(f"knn {name}: two calls differ")
+    if not (torch.equal(torch.clamp_min(rd, 0.0), gd) and torch.equal(
+            ri, gi)):
+        raise AssertionError(f"knn {name}: knn is not the launcher's rows")
+    wd, wi = knn_torch(points, k, valid)
+    fin = torch.isfinite(gd)
+    if not torch.equal(fin, torch.isfinite(wd)):
+        raise AssertionError(f"knn {name}: +inf slots differ")
+    sq = KN._sum_squares(points)
+    safe = torch.where(gi >= 0, gi, torch.zeros_like(gi))
+    size = (sq[:, None] + sq[safe]).abs()
+    ulp = torch.nextafter(size, torch.full_like(size, math.inf)) - size
+    diff = torch.where(fin, (gd - wd).abs(), torch.zeros_like(gd))
+    off = int((diff > 0).sum())
+    worst = float((diff / ulp)[fin].max()) if bool(fin.any()) else 0.0
+    if worst > KNN_ULPS:
+        raise AssertionError(f"knn {name}: a distance {worst:.2f} ulps off")
+    mism = (gi != wi) & fin
+    ties_bad = 0
+    if bool(mism.any()):
+        r, c = torch.nonzero(mism, as_tuple=True)
+        q = points[r].double()
+        d_k = ((q - points[gi[r, c]].double()) ** 2).sum(1)
+        d_w = ((q - points[wi[r, c]].double()) ** 2).sum(1)
+        ties_bad = int(((d_k - d_w).abs() > 2 * KNN_ULPS
+                        * ulp[r, c].double()).sum())
+    if ties_bad:
+        raise AssertionError(f"knn {name}: {ties_bad} neighbours differ "
+                             "beyond a tie")
+    asc = bool((rd[:, 1:] >= rd[:, :-1]).all())
+    ties = bool(((rd[:, 1:] != rd[:, :-1]) | (ri[:, 1:] > ri[:, :-1])
+                 | ~fin[:, 1:]).all())
+    idx_ok = bool(((gi >= 0) == fin).all()) and (
+        valid is None or bool(valid[safe][fin].all()))
+    if not (asc and ties and idx_ok):
+        raise AssertionError(f"knn {name}: ascending {asc}, ties by index "
+                             f"{ties}, indices {idx_ok}")
+    out = {"k": k, "dist_not_bitwise": off, "worst_ulps": worst,
+           "index_ties": int(mism.sum()), "inf_slots": int((~fin).sum()),
+           "clamped": int((rd < 0).sum())}
+    log(f"[knn] {name} k={k}: distances not bit for bit {off} of "
+        f"{gd.numel()}, worst {worst:.3f} ulps of sq_i + sq_j; indices "
+        f"apart only among equal distances ({int(mism.sum())}); +inf "
+        f"slots {out['inf_slots']}; clamped at 0 {out['clamped']}; two "
+        "calls bit for bit")
+    return out
+
+
+def random_knn_cases(base, alive, cases: int) -> int:
+    """Seeded random calls of knn_topk_cuda around the avatar's centres,
+    each synchronised, so that a fault shows at its call: 1 to all
+    127,744 slots, moved by 0 to 1 cm, a NaN or an infinite point now
+    and then, no mask, the alive mask or a random one, k 1..16, all rows
+    or a random range. Every output index is -1 or a valid slot, -1 only
+    at +inf, every finite distance a valid slot's, the rows ascending; where n <= 3000 and every point is
+    finite the distances are the torch path's within KNN_ULPS. Returns
+    the number of cases."""
+    from sings_tpu_torch.ops import knn as KN
+
+    rng = np.random.RandomState(SEED)
+    dev = base.device
+    big = base.shape[0]
+    for c in range(cases):
+        n = int(rng.choice([big, rng.randint(1, 3001),
+                            rng.randint(3001, big)]))
+        pts = base[:n] + float(rng.choice([0.0, 1e-4, 1e-2])) * torch.tensor(
+            rng.randn(n, 3).astype(np.float32), device=dev)
+        if rng.rand() < 0.1:
+            pts[rng.randint(n)] = float(rng.choice([math.nan, math.inf]))
+        pts = pts.contiguous()
+        mode = rng.randint(3)
+        valid = (None if mode == 0 else alive[:n].clone() if mode == 1
+                 else torch.tensor(rng.rand(n) < rng.rand(), device=dev))
+        k = int(rng.randint(1, min(n, KN.MAX_K) + 1))
+        rs = 0 if rng.rand() < 0.5 else int(rng.randint(n))
+        rr = n - rs if rs == 0 else int(rng.randint(1, n - rs + 1))
+        d, i = KN.knn_topk_cuda(pts, k, valid, rs, rr)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(d)
+        ok = (bool(((i >= -1) & (i < n)).all())
+              and bool((i[fin] >= 0).all())
+              and bool(torch.isinf(d[i < 0]).all())
+              and bool((d[:, 1:] >= d[:, :-1])[fin[:, 1:]].all())
+              and (valid is None or bool(valid[i[fin]].all())))
+        if ok and n <= 3000 and bool(torch.isfinite(pts).all()):
+            wd, _ = knn_torch(pts, k, valid, rs, rr)
+            sq = KN._sum_squares(pts)
+            size = (sq[rs:rs + rr, None]
+                    + sq[torch.where(i >= 0, i, 0)]).abs()
+            ulp = torch.nextafter(size, torch.full_like(size, math.inf)) - size
+            gd = torch.clamp_min(d, 0.0)
+            ok = bool(torch.equal(fin, torch.isfinite(wd))) and bool(
+                ((gd - wd).abs() <= KNN_ULPS * ulp)[fin].all())
+        if not ok:
+            raise AssertionError(f"knn random case {c}: n {n} k {k} rows "
+                                 f"{rs}+{rr}")
+    return cases
+
+
+def run_knn(trainer, launches: int, smi: str) -> dict:
+    """Phase 20: ops/knn.py's kernel csrc/knn_topk.cu at the avatar's state
+    (its canonical centres and alive mask), on a scene of duplicated
+    points and on one with fewer than k valid candidates, against the
+    torch path for k in KNN_KS (check_knn); knn_rows over the gs-4 split
+    equal to knn's rows; edge_stat against the torch path's; the
+    kernel's time (ops/timing.py::device_time) beside its bound and the
+    torch path's. launches: phase 9's, one a chunk. Returns the
+    kernels-line row."""
+    from sings_tpu_torch.losses.regularizers import edge_stat
+    from sings_tpu_torch.model.avatar import get_canon_xyz
+    from sings_tpu_torch.ops import knn as KN
+    from sings_tpu_torch.ops.timing import device_time
+
+    tr = trainer
+    with torch.no_grad():
+        xyz = get_canon_xyz(tr.params, tr.buffers, tr.avatar_cfg)
+    alive = tr.buffers.alive
+    valid = alive > 0
+    n, n_live = xyz.shape[0], int(valid.sum())
+    stats = [check_knn("avatar", xyz, k, valid) for k in KNN_KS]
+    # the gs-4 split of the rows, as dist/train_sharded.py asks for it
+    full_d, full_i = KN.knn(xyz, 9, valid=valid)
+    share = n // 4
+    for r in range(4):
+        d, i = KN.knn_rows(xyz, 9, row_start=r * share, rows=share,
+                           valid=valid)
+        if not (torch.equal(d, full_d[r * share:(r + 1) * share])
+                and torch.equal(i, full_i[r * share:(r + 1) * share])):
+            raise AssertionError(f"knn_rows range {r} is not knn's rows")
+    # exact ties: the live centres three times over (the third copy
+    # reversed), a tenth of them invalid
+    live = xyz[valid][:30000]
+    dup = torch.cat([live, live, live.flip(0)]).contiguous()
+    gen = torch.Generator(device=xyz.device).manual_seed(SEED)
+    dup_valid = torch.rand(dup.shape[0], generator=gen,
+                           device=xyz.device) > 0.1
+    stats += [check_knn("duplicates", dup, k, dup_valid) for k in KNN_KS]
+    stats += [check_knn("duplicates, every point valid", dup, k, None)
+              for k in KNN_KS]
+    # fewer than k valid candidates: +inf and -1 in the tail
+    few_valid = torch.zeros(1000, dtype=torch.bool, device=xyz.device)
+    few_valid[torch.tensor([3, 17, 250, 500, 999])] = True
+    few = xyz[:1000].contiguous()
+    for k in (9, 16):
+        stats.append(check_knn("5 valid of 1000", few, k, few_valid))
+        d, i = KN.knn(few, k, valid=few_valid)
+        if not (bool(torch.isinf(d[:, 5:]).all())
+                and bool((i[:, 5:] == -1).all())):
+            raise AssertionError("knn: the tail past 5 valid candidates")
+    n_random = random_knn_cases(xyz, valid, KNN_RANDOM_CASES)
+    log(f"[knn] {n_random} seeded random cases (sizes, masks, k, row "
+        "ranges, NaN and infinite points): indices and order sound, the "
+        "small ones the torch path's distances")
+    # the statistic as the chunk head makes it
+    stat = edge_stat(xyz, alive, k=tr.step_cfg.knn_k)
+    wd, _ = knn_torch(xyz, tr.step_cfg.knn_k, valid)
+    want = torch.sqrt(torch.clamp_min(wd[:, 1:], 1e-24)).mean(dim=1)
+    stat_err = float(((stat - want).abs() / want.abs().clamp_min(
+        1e-30)).max())
+    if not bool(torch.isfinite(stat).all()) or stat_err > KNN_STAT_RTOL:
+        raise AssertionError(f"edge_stat through the kernel: {stat_err:.3e}")
+    # times: the kernel (with its glue), the statistic, the torch path
+    ms = device_time(lambda _x: KN.knn(xyz, 9, valid=valid), (xyz,)) * 1e3
+    stat_ms = device_time(lambda _x: edge_stat(xyz, alive, k=9),
+                          (xyz,)) * 1e3
+    rows_ms = device_time(lambda _x: KN.knn_rows(
+        xyz, 9, row_start=0, rows=share, valid=valid), (xyz,)) * 1e3
+    lib_ms = cuda_ms(lambda: knn_torch(xyz, 9, valid), n=2, warm=1)
+    bound_ms = KNN_OPS_PER_PAIR * n_live ** 2 / H100_FP32_FLOPS * 1e3
+    walk_ms = KNN_OPS_PER_PAIR * n * n_live / H100_FP32_FLOPS * 1e3
+    log(f"[timing] knn_topk (k 9, {n_live} live in {n} slots, with its "
+        f"glue) {ms:.4f} ms, edge_stat {stat_ms:.4f} ms, knn_rows of a "
+        f"quarter {rows_ms:.4f} ms; the torch path (matmul + torch.topk) "
+        f"{lib_ms:.3f} ms; bound {bound_ms:.4f} ms at N_live^2 pairs "
+        f"({100 * bound_ms / ms:.1f}% of it), {walk_ms:.4f} ms at the "
+        f"{n * n_live} pairs of a walk that skips no tile; edge_stat "
+        f"within {stat_err:.2e}; "
+        f"{launches} launches in 16 steps | {smi}")
+    return {
+        "name": "knn_topk", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/knn_topk.cu",
+        "replaces": KNN_REPLACES, "launches": launches,
+        "max_abs_err": None, "worst_ulps": max(x["worst_ulps"]
+                                               for x in stats),
+        "edge_stat_rel_err": stat_err, "ms": ms, "kernel_ms": ms,
+        "edge_stat_ms": stat_ms, "rows_quarter_ms": rows_ms,
+        "plain_ms": lib_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+        "bound_all_pairs_ms": walk_ms, "bound_by": "operations",
+    }
 
 
 # ---------------------------------------------------------------------------

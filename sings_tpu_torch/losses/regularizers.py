@@ -82,7 +82,7 @@ def edge_stat(xyz_canon: torch.Tensor, alive: torch.Tensor, k: int = 9,
         return knn_window_stat(xyz_canon, k, valid=alive > 0)
     if backend != "dense":
         raise ValueError(f"edge_stat backend {backend!r}")
-    dists, _ = knn(xyz_canon, k, valid=alive > 0)
+    dists, _ = knn(xyz_canon.contiguous(), k, valid=alive > 0)
     return torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(dim=1)
 
 
@@ -111,8 +111,8 @@ def gaussians_edge_loss_rows(xyz_canon: torch.Tensor, scales: torch.Tensor,
     same global alive normaliser). The JAX package's default approx=True
     computes the exact top-k off the TPU, as the port does."""
     with torch.no_grad():
-        dists, _ = knn_rows(xyz_canon, k, row_start=row_start, rows=rows,
-                            valid=alive > 0)
+        dists, _ = knn_rows(xyz_canon.contiguous(), k, row_start=row_start,
+                            rows=rows, valid=alive > 0)
         edge_len = torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(
             dim=1)
     s_loc = scales[row_start: row_start + rows, 0]
