@@ -23,6 +23,7 @@ get the same gradient; relu's derivative is 0 at 0 in both.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -88,10 +89,19 @@ def get_lpips(weights_path: str | None = None, seed: int = 0,
     return init_random(torch.Generator().manual_seed(int(seed)), device)
 
 
+@functools.lru_cache(maxsize=None)
+def _input_norm(device: torch.device, dtype: torch.dtype) -> tuple:
+    """The input shift and scale as (1, 3, 1, 1) tensors, made once per
+    device and dtype: a tensor made from host data is a copy to the
+    card, which makes the host wait for the card's queue."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device)[None, :, None,
+                                                            None]
+                 for v in (_SHIFT, _SCALE))
+
+
 def _vgg_slices(params: LPIPSParams, x: torch.Tensor) -> list:
     """x: (B, 3, H, W) in [0, 1] -> the 5 feature maps (B, C, h, w)."""
-    shift = x.new_tensor(_SHIFT)[None, :, None, None]
-    scale = x.new_tensor(_SCALE)[None, :, None, None]
+    shift, scale = _input_norm(x.device, x.dtype)
     x = ((x - 0.5) * 2.0 - shift) / scale
     feats = []
     for i, ((w, b), (_, pool)) in enumerate(zip(params.convs, _VGG_PLAN)):

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..ops.clip import abs as jabs
 from ..ops.clip import clip
+from ..ops.profiling import span
 from ..ops.ssim import ssim
 
 
@@ -156,8 +157,9 @@ def photometric_loss(draws: dict, pred: torch.Tensor, gt_rgb: torch.Tensor,
         gt_p = crop_patches(gt_bg, draws["ys"], draws["xs"],
                             weights.patch_size)
         if use_lpips:
-            losses["lpips_patch"] = weights.lpips * lpips_fn(
-                clip(pred_p, hi=1.0), gt_p).mean()
+            with span("losses.lpips"):
+                losses["lpips_patch"] = weights.lpips * lpips_fn(
+                    clip(pred_p, hi=1.0), gt_p).mean()
             total = total + losses["lpips_patch"]
         if weights.grad_pyramid > 0:
             losses["grad_pyr"] = weights.grad_pyramid * \

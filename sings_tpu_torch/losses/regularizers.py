@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.knn import knn, knn_rows, knn_window_stat
+from ..ops.profiling import span
 
 
 def _masked_norm(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -79,7 +80,8 @@ def edge_stat(xyz_canon: torch.Tensor, alive: torch.Tensor, k: int = 9,
     (N,), detached. backend "dense": the exact KNN (idx 0 is the point
     itself); "window": Morton-curve candidate windows (approximate)."""
     if backend == "window":
-        return knn_window_stat(xyz_canon, k, valid=alive > 0)
+        with span("losses.knn_window"):
+            return knn_window_stat(xyz_canon, k, valid=alive > 0)
     if backend != "dense":
         raise ValueError(f"edge_stat backend {backend!r}")
     dists, _ = knn(xyz_canon.contiguous(), k, valid=alive > 0)

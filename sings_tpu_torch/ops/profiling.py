@@ -24,6 +24,13 @@ ranges):
                         avatar_forward and the warm-up gates
   step.rasterize        the step's rasterize call
   step.losses           photometric, silhouette and regularizer terms
+  losses.lpips          losses/photometric.py::photometric_loss, inside
+                        step.losses: the LPIPS term on the patches
+  losses.knn_window     losses/regularizers.py::edge_stat, inside
+                        step.losses: the windowed statistic
+                        (tpu.knn_backend=window)
+  losses.laplacian      train/step.py::regularizer_terms, inside
+                        step.losses: the fused region laplacian terms
   step.backward         torch.autograd.grad and the zero fill
   step.update           the finite guard, Adam, the kept state, the
                         density statistics and the metrics

@@ -26,7 +26,10 @@ also takes the draws as an argument.
 Each stage runs in an ops/profiling.py span that a profiler records:
 step.knn_stat at the chunk head, then step.draws (where the step draws
 its own randoms), step.decode, step.rasterize, step.losses,
-step.backward and step.update in every step.
+step.backward and step.update in every step. Inside step.losses,
+losses.laplacian holds the fused laplacian terms, and the options hold
+their own: losses.lpips (the LPIPS term) and losses.knn_window (the
+windowed statistic).
 """
 from __future__ import annotations
 
@@ -134,15 +137,16 @@ def regularizer_terms(step_cfg: StepConfig, out: dict,
     color_on = w.lap_color_strength != 0
     if color_on and step_cfg.lap_shared:
         pos_terms.append((out["shs"][:, 0], lap_color_w, None))
-    fused = region_lap_pos.loss_fused(pos_terms) if pos_terms else []
-    lap_pos = fused.pop(0) if w.lap_position_strength != 0 else zero
-    hand_raw = fused.pop(0) if hand_on else zero
-    if color_on:
-        lap_color = (fused.pop(0) if step_cfg.lap_shared
-                     else region_lap_color.loss_fused(
-                         [(out["shs"][:, 0], lap_color_w, None)])[0])
-    else:
-        lap_color = zero
+    with span("losses.laplacian"):
+        fused = region_lap_pos.loss_fused(pos_terms) if pos_terms else []
+        lap_pos = fused.pop(0) if w.lap_position_strength != 0 else zero
+        hand_raw = fused.pop(0) if hand_on else zero
+        if color_on:
+            lap_color = (fused.pop(0) if step_cfg.lap_shared
+                         else region_lap_color.loss_fused(
+                             [(out["shs"][:, 0], lap_color_w, None)])[0])
+        else:
+            lap_color = zero
     ramp = min(max((step - w.lap_impose_from)
                    / max(w.lap_impose_from, 1), 0.0), 1.0)
     alpha = w.lap_position_strength * ramp * (

@@ -222,6 +222,21 @@ def test_lpips_gradient_matches_jax(case):
     _grad_close(gt.numpy(), gj, rtol=1e-4, atol_rel=1e-5)
 
 
+def test_lpips_input_norm_is_made_once_per_device_and_dtype():
+    """The input shift and scale are made once per device and dtype (a
+    tensor made from host data on the card waits for its queue), with
+    the lpips package's values."""
+    cpu = torch.device("cpu")
+    shift, scale = tlpips._input_norm(cpu, torch.float32)
+    assert tlpips._input_norm(cpu, torch.float32)[0] is shift
+    assert tuple(shift.shape) == tuple(scale.shape) == (1, 3, 1, 1)
+    assert shift.flatten().tolist() == torch.tensor(
+        (-0.030, -0.088, -0.188)).tolist()
+    assert scale.flatten().tolist() == torch.tensor(
+        (0.458, 0.448, 0.450)).tolist()
+    assert tlpips._input_norm(cpu, torch.float64)[0].dtype == torch.float64
+
+
 def test_lpips_weights_npz_round_trip(tmp_path):
     """tpu.lpips_weights: an npz in the official layout loads as
     pretrained and gives JAX's distance on the same file."""
