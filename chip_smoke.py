@@ -29,8 +29,8 @@ exp_bwd_variants} at their own sizes. Phases:
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
                 each one kernel for both layouts; composite_bwd_variants.cu,
-                chunk_scan_bench.cu, triplane_bwd.cu and knn_topk.cu) and g++
-                (mesh_native), timed
+                chunk_scan_bench.cu, triplane_bwd.cu, knn_topk.cu and
+                bin_tiles.cu) and g++ (mesh_native), timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
@@ -229,6 +229,20 @@ exp_bwd_variants} at their own sizes. Phases:
                 edge_stat within 1e-6 of the torch path's;
                 device_time of the kernel, of edge_stat and of a quarter
                 of the rows, CUDA-event time of the torch path, the bound
+ 21 binning    the tile binning's kernels, ops/rasterizer/tiles.py's
+                csrc/bin_tiles.cu (bin_gaussians on CUDA tensors), at
+                phase 4's animation frame 0 and at phase 8's training
+                frame: every TileBinning field against the plain version
+                (bin_gaussians_plain on the same CUDA inputs), integer for
+                integer, and two calls bit for bit; no host wait inside a
+                call (the profiler's CUDA runtime calls in its range, and
+                torch's sync debug mode set to raise); LAUNCHES["bin_tiles"]
+                one a rasterize call, counted through phase 5's
+                animate_chunk (32 frames in each layout), phase 9's
+                train_scan (16 steps) and phase 19 (a strip, a rank and
+                step); CUDA-event and host-issue times of
+                the kernel path and of the plain version, and the byte
+                bound (each input read, each output written once)
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -384,10 +398,10 @@ SEED = 0
 KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
                "composite_bwd_panel": 0.0}
 # the CUDA sources: the composite kernels (each one kernel for both
-# layouts), the experiment kernels, the triplane's grid backward and the
-# exact KNN statistic
+# layouts), the experiment kernels, the triplane's grid backward, the
+# exact KNN statistic and the tile binning
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
-           "chunk_scan_bench", "triplane_bwd", "knn_topk"]
+           "chunk_scan_bench", "triplane_bwd", "knn_topk", "bin_tiles"]
 
 
 def log(msg: str) -> None:
@@ -737,6 +751,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
     from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer import tiles as T
     from sings_tpu_torch.ops.rasterizer.api import tiles_to_image, RasterConfig
     from sings_tpu_torch.train.trainer import Trainer, quantize
 
@@ -832,6 +847,9 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
                 if not (busy == 1).float().mean() >= 0.8:
                     raise AssertionError("single-window tiles: too few")
         panel_edge_scenes(dev, ekw)
+        # ---- 21 the binning's kernels at this frame
+        bin_anim = check_binning("animation frame 0",
+                                 *binning_inputs(frame0, ds.camera, kw), smi)
 
         # the whole frame through the plain version, for phase 5
         color, t_final = tiles_to_image(want, RasterConfig(
@@ -847,10 +865,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
             frames[start + j] = imgs[j]
 
     K.reset_launches()
+    T.reset_launches()
     torch.cuda.synchronize()
     fps = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                 save_video=False, writer=writer)
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, **T.LAUNCHES)
     log(f"[main] {len(frames)} frames at {fps:.2f} fps (host clock, "
         f"readback included), launches {launches}")
     if sorted(frames) != list(range(32)):
@@ -867,9 +886,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         f"{max(steps):.3f}, frame 0 vs 16: {swing:.3f}")
     if not (min(steps) > 0 and swing > 0.5):
         raise AssertionError("frames do not follow the motion")
-    if launches["composite_fwd"] != 32:
-        raise AssertionError(f"composite_fwd launched "
-                             f"{launches['composite_fwd']} times, not 32")
+    for name in ("composite_fwd", "bin_tiles"):
+        if launches[name] != 32:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 "in 32 frames, not 32")
+    BIN_STATS["launches_anim"] = launches["bin_tiles"]
     if any(K.STATE_WRITES.values()):
         raise AssertionError(f"the animation wrote the window-entry state: "
                              f"{K.STATE_WRITES}")
@@ -885,10 +906,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     frames.clear()
     trainer.raster_kw["layout"] = "panel"
     K.reset_launches()
+    T.reset_launches()
     torch.cuda.synchronize()
     fps_p = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                   save_video=False, writer=writer)
-    panel_launches = dict(K.LAUNCHES)
+    panel_launches = dict(K.LAUNCHES, **T.LAUNCHES)
     trainer.raster_kw["layout"] = "tiled"
     same = [np.array_equal(frames[i], tiled_frames[i]) for i in range(32)]
     log(f"[main panel] {len(frames)} frames at {fps_p:.2f} fps, launches "
@@ -898,6 +920,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
                              "layout's")
     if (panel_launches["composite_fwd_panel"] != 32
             or panel_launches["composite_fwd"] != 0
+            or panel_launches["bin_tiles"] != 32
             or any(K.STATE_WRITES.values())):
         raise AssertionError(f"panel animation launches {panel_launches}, "
                              "expected 32 composite_fwd_panel and 0 tiled")
@@ -937,6 +960,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     del trainer, gs_attrs, posed, frame0, feats, binning, want
     torch.cuda.empty_cache()
     kernels.extend(run_train(work, dev, smi, profile_dir))
+    kernels.append(binning_row(bin_anim))
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
     kernels.extend(run_scan(dev, smi))
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
@@ -1383,6 +1407,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops import knn as KN
     from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer import tiles as T
     from sings_tpu_torch.train.trainer import Trainer
     from sings_tpu_torch.tree import tree_leaves
 
@@ -1432,6 +1457,13 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"grad_cap {binning.pair_slot_capacity}, {tile_load(binning)}")
     max_err = check_bwd("training frame 0 (the loss's cotangents)", got,
                         want, binning)
+    # ---- 21 the binning's kernels at the training frame
+    with torch.no_grad():
+        BIN_STATS["train"] = check_binning(
+            "training frame 0", *binning_inputs(
+                [x.detach() for x in leaves[:5]]
+                + [trainer.buffers.alive > 0.5], trainer.camera,
+                trainer.raster_kw), smi)
     ekw = dict(tile=16, chunk=128, max_span=8, max_pairs=None, main_width=4,
                tail_capacity=None, pair_cap=None)
     g, cam = random_scene(400, 380, 500, 1, dev)
@@ -1478,6 +1510,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     K.reset_launches()
     GG.reset_launches()
     KN.reset_launches()
+    T.reset_launches()
     torch.cuda.synchronize()
     times, all_losses, all_skipped = [], [], []
     for c in range(2):
@@ -1492,7 +1525,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_losses += losses_h.tolist()
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
-    launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
+    launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"],
+                    **T.LAUNCHES)
+    BIN_STATS["launches_train"] = launches["bin_tiles"]
     knn_launches = KN.LAUNCHES["knn_topk"]
     if knn_launches != 2:
         raise AssertionError(f"the chunk head's statistic launched "
@@ -1529,9 +1564,10 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         f"Adam count {int(o.count)}")
     if accum <= 0.0:
         raise AssertionError("xyz_grad_accum is zero on every visible slot")
-    # one composite forward and backward a step, and one triplane_bwd (the
-    # triplane's backward)
-    for name in ("composite_fwd", "composite_bwd", "triplane_bwd"):
+    # one composite forward and backward a step, one triplane_bwd (the
+    # triplane's backward) and one binning (the forward's rasterize)
+    for name in ("composite_fwd", "composite_bwd", "triplane_bwd",
+                 "bin_tiles"):
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
@@ -2103,6 +2139,154 @@ def run_knn(trainer, launches: int, smi: str) -> dict:
         "edge_stat_ms": stat_ms, "rows_quarter_ms": rows_ms,
         "plain_ms": lib_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
         "bound_all_pairs_ms": walk_ms, "bound_by": "operations",
+    }
+
+
+# ---------------------------------------------------------------------------
+# the tile binning's kernels (phase 21, at phase 4's and phase 8's frames)
+
+BIN_REPLACES = ("none: sings_tpu/ops/rasterizer/tiles.py::bin_gaussians "
+                "(XLA code, no pallas_call)")
+# the runtime calls that make the host wait (benchmark/counts/spans.py)
+BIN_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize", "cudaMemcpy")
+# phase 21's checks at the training frame and LAUNCHES["bin_tiles"] in
+# phases 5 and 9
+BIN_STATS = {}
+
+
+def binning_inputs(gauss, cam, kw):
+    """A frame's screen-space gaussians and bin_gaussians' keywords, as
+    prepare_composite makes them (gauss as composite_inputs takes it)."""
+    from sings_tpu_torch.ops.rasterizer.api import (
+        RasterConfig, _pad_tiles, valid_tiles_y,
+    )
+    from sings_tpu_torch.ops.rasterizer.common import preprocess
+
+    cfg = RasterConfig(height=cam.height, width=cam.width, **{
+        k: kw[k] for k in ("tile", "chunk", "max_span", "max_pairs",
+                           "main_width", "tail_capacity", "pair_cap")})
+    g2d = preprocess(*gauss[:4], gauss[4], cam, sh_degree=3,
+                     alive=gauss[5] if len(gauss) > 5 else None,
+                     tile=cfg.tile)
+    ntx, nty = _pad_tiles(cfg)
+    return g2d, dict(tile=cfg.tile, n_tiles_x=ntx, n_tiles_y=nty,
+                     max_span=cfg.max_span, align=cfg.chunk,
+                     max_pairs=cfg.max_pairs, main_width=cfg.main_width,
+                     tail_capacity=cfg.tail_capacity, cull=cfg.cull,
+                     pair_cap=cfg.pair_cap,
+                     valid_tiles_y=valid_tiles_y(cfg, None))
+
+
+def bin_bytes(g2d, binning) -> int:
+    """The binning's least traffic: each input field read once (means,
+    depths, conics, opacities, radii, mask: 33 bytes a gaussian) and
+    each output field written once."""
+    n = g2d.means2d.shape[0]
+    return 33 * n + sum(
+        getattr(binning, f).numel() * getattr(binning, f).element_size()
+        for f in binning._fields if f != "pair_slot_capacity")
+
+
+def host_waits_in(fn) -> tuple:
+    """One call of fn under the profiler: the runtime calls that make the
+    host wait and the launch calls that start inside its range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PREAMBLE):
+            torch.cuda._sleep(1000)
+        with record_function("bin_call"):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    outer = [e for e in evs if e.name == "bin_call"][0].time_range
+    inside = [e.name for e in evs
+              if outer.start <= e.time_range.start <= outer.end]
+    waits = [x for x in inside if x in BIN_WAIT_CALLS]
+    launches = [x for x in inside if x.startswith(("cudaLaunch",
+                                                   "cuLaunch"))]
+    return waits, launches
+
+
+def check_binning(name: str, g2d, bkw: dict, smi: str) -> dict:
+    """Phase 21 at one frame: bin_gaussians through csrc/bin_tiles.cu
+    against bin_gaussians_plain on the same CUDA inputs, every field
+    integer for integer, two calls bit for bit, no host wait inside a
+    call; CUDA-event and host-issue times of both, the byte bound."""
+    from sings_tpu_torch.ops.rasterizer import tiles as T
+
+    want = T.bin_gaussians_plain(g2d, **bkw)
+    got = T.bin_gaussians(g2d, **bkw)
+    again = T.bin_gaussians(g2d, **bkw)
+    torch.cuda.synchronize()
+    for f in T.TileBinning._fields:
+        a, b, c = getattr(got, f), getattr(want, f), getattr(again, f)
+        same = (a == b == c) if f == "pair_slot_capacity" else (
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            and torch.equal(a, c))
+        if not same:
+            raise AssertionError(f"binning {name}: {f} differs from the "
+                                 "plain version's")
+    waits, launches = host_waits_in(lambda: T.bin_gaussians(g2d, **bkw))
+    if waits or not launches:
+        raise AssertionError(f"binning {name}: host waits {waits} in a "
+                             f"call ({len(launches)} launches seen)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.bin_gaussians(g2d, **bkw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ms = cuda_ms(lambda: T.bin_gaussians(g2d, **bkw), n=50, warm=5)
+    plain_ms = cuda_ms(lambda: T.bin_gaussians_plain(g2d, **bkw), n=10,
+                       warm=2)
+
+    def issue_ms(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e3
+
+    host_ms = issue_ms(lambda: T.bin_gaussians(g2d, **bkw), 50)
+    plain_host_ms = issue_ms(lambda: T.bin_gaussians_plain(g2d, **bkw), 10)
+    nbytes = bin_bytes(g2d, got)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    out = {"pairs": int(got.num_pairs), "overflow": int(got.overflow),
+           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "plain_host_ms": plain_host_ms, "bound_ms": bound_ms,
+           "bytes": nbytes, "launch_calls": len(launches)}
+    log(f"[binning] {name}: {g2d.means2d.shape[0]} gaussians, "
+        f"{out['pairs']} pairs, overflow {out['overflow']}: every field the "
+        f"plain version's, two calls bit for bit; no host wait in a call "
+        f"({len(launches)} launch calls, profiler and sync debug mode)")
+    log(f"[timing] binning {name}: kernels {ms:.4f} ms (host issue "
+        f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms (host "
+        f"{plain_host_ms:.4f} ms), bound {bound_ms:.4f} ms ({nbytes} bytes"
+        f", {100 * bound_ms / ms:.1f}% of it) | {smi}")
+    return out
+
+
+def binning_row(anim: dict) -> dict:
+    """The kernels-line row of phase 21: the animation frame's times, the
+    training frame's beside them, the launches of phases 5 and 9."""
+    train = BIN_STATS["train"]
+    return {
+        "name": "bin_tiles", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/bin_tiles.cu",
+        "replaces": BIN_REPLACES,
+        "launches": BIN_STATS["launches_anim"],
+        "launches_train": BIN_STATS["launches_train"],
+        "max_abs_err": 0.0, "ms": anim["ms"], "kernel_ms": anim["ms"],
+        "host_ms": anim["host_ms"], "plain_ms": anim["plain_ms"],
+        "plain_host_ms": anim["plain_host_ms"],
+        "bound_ms": anim["bound_ms"], "bound_by": "bytes",
+        "train_frame_ms": train["ms"], "train_frame_plain_ms":
+        train["plain_ms"], "library_ms": None,
     }
 
 
@@ -2693,16 +2877,20 @@ def perturbed(tree):
 def launch_counts() -> dict:
     from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer import tiles as T
 
-    return dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"])
+    return dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"],
+                **T.LAUNCHES)
 
 
 def reset_all_launches() -> None:
     from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops.rasterizer import kernels as K
+    from sings_tpu_torch.ops.rasterizer import tiles as T
 
     K.reset_launches()
     GG.reset_launches()
+    T.reset_launches()
 
 
 @torch.no_grad()
@@ -3081,7 +3269,8 @@ SHARD_CLI_DOTLIST = [
     "human.density_control.hybrid.densify_interval=100",
     "human.density_control.hybrid.densify_grad_threshold=0.0",
     "exp_name=smoke_shard"]
-SHARD_KERNELS = ("composite_fwd", "composite_bwd", "triplane_bwd")
+SHARD_KERNELS = ("composite_fwd", "composite_bwd", "triplane_bwd",
+                 "bin_tiles")
 # each kernel's launches in one sharded step on one rank of 19.3 (the
 # kernels line's launches_sharded)
 SHARD_LAUNCHES = {}
@@ -3328,7 +3517,7 @@ def check_strips(trainer, batch) -> dict:
         if abs(n_pairs - n_full) > 1e-4 * n_full:
             raise AssertionError(f"{name}: {n_pairs} pairs over the strips, "
                                  f"{n_full} in the full frame")
-        for k in ("composite_fwd", "composite_bwd"):
+        for k in ("composite_fwd", "composite_bwd", "bin_tiles"):
             if launches[k] != n_gs:
                 raise AssertionError(f"{name}: {k} launched {launches[k]} "
                                      f"times for {n_gs} strips")
@@ -3731,7 +3920,7 @@ def run_sharded(work: str, dev, smi: str, trainer, batches) -> None:
                              "its process group")
     for k in SHARD_KERNELS:
         if ca["launches"][k] < 4 or ca["launches"][k] != cb["launches"][k] \
-                and k != "composite_fwd":
+                and k not in ("composite_fwd", "bin_tiles"):
             raise AssertionError(f"cli gs 2: {k} launches "
                                  f"{ca['launches'][k]} / {cb['launches'][k]}")
     SHARD_LAUNCHES.update({k: a["launches"][k] for k in SHARD_KERNELS})

@@ -1,8 +1,9 @@
 """Differentiable rasterizer API (port of sings_tpu/ops/rasterizer/api.py).
 
 rasterize() = preprocess (autograd) -> bin_gaussians -> _gather_feats ->
-composite kernel (CUDA on the card, plain version on the CPU) -> crop ->
-background blend, each stage in an ops/profiling.py span (raster.*).
+composite kernel -> crop -> background blend (the binning and the
+composite are CUDA kernels on the card, plain versions on the CPU), each
+stage in an ops/profiling.py span (raster.*).
 The composite is an autograd.Function whose backward is the matching
 backward kernel: it writes per-pair gradients into the aligned buffer,
 and the 9 used rows are un-sorted back to gaussians with the main_slot

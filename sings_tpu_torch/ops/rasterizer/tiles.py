@@ -20,16 +20,34 @@ sings_tpu/ops/rasterizer/tiles.py, forward fields).
      invalid pairs point at the spare slot grad_capacity - 1.
 
 Every field equals JAX's integer for integer, tail overflow included.
+
+bin_gaussians dispatches on the device:
+  * CUDA tensors: csrc/bin_tiles.cu (built with nvcc for sm_90a, called
+    through ctypes; raises on any failure), bin_tiles_cuda: one emit
+    kernel, one stable key sort (torch.sort), one tile scan and one slot
+    kernel, with static shapes and no host wait; every field equals the
+    plain version's on the same CUDA inputs. LAUNCHES["bin_tiles"]
+    counts its calls.
+  * CPU tensors: bin_gaussians_plain, the torch ops above.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from .. import cuda_build
 from .common import Gaussians2D, tile_rect
 
 INVALID = 2**31 - 1
+
+# calls of the CUDA path, never of the plain version
+LAUNCHES = {"bin_tiles": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["bin_tiles"] = 0
 
 
 class TileBinning(NamedTuple):
@@ -59,11 +77,29 @@ def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
                   pair_cap: int | None = None,
                   valid_tiles_y: torch.Tensor | None = None) -> TileBinning:
     """Depth-ordered, tile-grouped pair lists (see module docstring).
-    Every output shape is static, but the host waits for the card four
-    times a call: the boolean-mask indexings starts[keep], deltas[keep]
-    (the slot shifts) and sf[real], slot[real] (the pair-slot inverse)
-    each run a nonzero whose size the host reads back. The benchmark's
-    host_syncs_per_frame.anim counts them."""
+    Every output shape is static. On the card (bin_tiles_cuda) the host
+    never waits; the plain version waits four times a call: the
+    boolean-mask indexings starts[keep], deltas[keep] (the slot shifts)
+    and sf[real], slot[real] (the pair-slot inverse) each run a nonzero
+    whose size the host reads back."""
+    kw = dict(tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+              max_span=max_span, align=align, max_pairs=max_pairs,
+              main_width=main_width, tail_capacity=tail_capacity,
+              cull=cull, pair_cap=pair_cap, valid_tiles_y=valid_tiles_y)
+    if g.means2d.is_cuda:
+        return bin_tiles_cuda(g, **kw)
+    return bin_gaussians_plain(g, **kw)
+
+
+def bin_gaussians_plain(g: Gaussians2D, *, tile: int, n_tiles_x: int,
+                        n_tiles_y: int, max_span: int = 3, align: int = 128,
+                        max_pairs: int | None = None, main_width: int = 6,
+                        tail_capacity: int | None = None, cull: bool = True,
+                        pair_cap: int | None = None,
+                        valid_tiles_y: torch.Tensor | None = None
+                        ) -> TileBinning:
+    """bin_gaussians in torch ops, on any device (the CUDA path's
+    reference on the card)."""
     dev = g.means2d.device
     i64 = torch.int64
     n = g.means2d.shape[0]
@@ -216,26 +252,10 @@ def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
 
     mw = min(main_width, cap)
     main_slot = ps[:, :mw]
-    tw = cap - mw
-    if tw > 0:
-        # tail table over gaussians spanning more than main_width pairs;
-        # its overflow is counted
-        tc = tail_capacity
-        if tc is None:
-            tc = max(align, -(-n // 16 // align) * align)
-        tc = min(tc, n)
-        big = span > mw
-        nbig = big.sum()
-        border = torch.argsort((~big).to(torch.int32), stable=True)
-        tail_rows = border[:tc]
-        row_ok = torch.arange(tc, device=dev) < nbig
-        tail_slot = torch.where(row_ok[:, None], ps[tail_rows, mw:],
-                                torch.full_like(ps[tail_rows, mw:], spare))
-        brank = torch.cumsum(big.to(i64), 0) - 1
-        tail_of_gauss = torch.where(big & (brank < tc), brank,
-                                    torch.full_like(brank, tc))
-        overflow = overflow + torch.where(big & (brank >= tc), span - mw,
-                                          torch.zeros_like(span)).sum()
+    if cap > mw:
+        tail_slot, tail_of_gauss, tail_over = _tail_tables(
+            ps, span, mw, tail_capacity, align, spare)
+        overflow = overflow + tail_over
     else:
         tail_of_gauss = torch.zeros(n, dtype=i64, device=dev)
         tail_slot = torch.zeros((0, 0), dtype=i64, device=dev)
@@ -252,3 +272,226 @@ def bin_gaussians(g: Gaussians2D, *, tile: int, n_tiles_x: int,
         overflow=overflow.to(i32),
         pair_slot_capacity=pg,
     )
+
+
+def _tail_tables(ps: torch.Tensor, span: torch.Tensor, mw: int,
+                 tail_capacity: int | None, align: int, spare: int):
+    """The tail table over gaussians spanning more than mw pairs, from
+    the (N, cap) pair-slot table and each gaussian's span (both paths):
+    (tail_slot, tail_of_gauss, the overflow of gaussians past its
+    capacity). Its shapes depend on the arguments alone; no host wait."""
+    n = ps.shape[0]
+    dev = ps.device
+    i64 = torch.int64
+    tc = tail_capacity
+    if tc is None:
+        tc = max(align, -(-n // 16 // align) * align)
+    tc = min(tc, n)
+    big = span > mw
+    nbig = big.sum()
+    border = torch.argsort((~big).to(torch.int32), stable=True)
+    tail_rows = border[:tc]
+    row_ok = torch.arange(tc, device=dev) < nbig
+    tail_slot = torch.where(row_ok[:, None], ps[tail_rows, mw:],
+                            torch.full_like(ps[tail_rows, mw:], spare))
+    brank = torch.cumsum(big.to(i64), 0) - 1
+    tail_of_gauss = torch.where(big & (brank < tc), brank,
+                                torch.full_like(brank, tc))
+    tail_over = torch.where(big & (brank >= tc), span - mw,
+                            torch.zeros_like(span)).sum()
+    return tail_slot, tail_of_gauss, tail_over
+
+
+# the CUDA path
+
+# csrc/bin_tiles.cu's BinEmitArgs and BinFinishArgs, every field 8 bytes
+_P, _L = ctypes.c_void_p, ctypes.c_longlong
+
+
+class _EmitArgs(ctypes.Structure):
+    _fields_ = [
+        ("means", _P), ("means_s0", _L), ("means_s1", _L),
+        ("depths", _P), ("depths_s", _L),
+        ("conics", _P), ("conics_s0", _L), ("conics_s1", _L),
+        ("thr", _P), ("radii", _P), ("radii_s", _L),
+        ("mask", _P), ("mask_s", _L), ("vty_dev", _P), ("vty", _L),
+        ("n", _L), ("tile", _L), ("ntx", _L), ("nty", _L),
+        ("max_span", _L), ("cap", _L), ("compact", _L), ("spare", _L),
+        ("keys", _P), ("pair_slot", _P), ("span", _P),
+        ("tail_of_gauss", _P), ("overflow", _P)]
+
+
+class _FinishArgs(ctypes.Structure):
+    _fields_ = [
+        ("sorted_key", _P), ("sorted_flat", _P), ("p", _L), ("take", _L),
+        ("pk", _L), ("cap", _L), ("n_tiles", _L), ("align", _L),
+        ("pg", _L), ("overflow", _P), ("tile_offsets", _P),
+        ("grad_offsets", _P), ("shift", _P), ("num_pairs", _P),
+        ("overflow_out", _P), ("sorted_gauss", _P), ("pair_slot", _P)]
+
+
+def _lib():
+    lib = cuda_build.load("bin_tiles")
+    if lib.bin_tiles_emit.argtypes is None:
+        lib.bin_tiles_emit.argtypes = [ctypes.POINTER(_EmitArgs), _P]
+        lib.bin_tiles_emit.restype = ctypes.c_int
+        lib.bin_tiles_finish.argtypes = [ctypes.POINTER(_FinishArgs), _P]
+        lib.bin_tiles_finish.restype = ctypes.c_int
+    return lib
+
+
+# (field, dtype, trailing shape) of the Gaussians2D fields the kernel reads
+_FIELDS = (("means2d", torch.float32, (2,)), ("depths", torch.float32, ()),
+           ("conics", torch.float32, (3,)),
+           ("opacities", torch.float32, ()), ("radii", torch.int32, ()),
+           ("mask", torch.bool, ()))
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _check_bin(g: Gaussians2D, *, tile, n_tiles_x, n_tiles_y, max_span,
+               align, max_pairs, main_width, tail_capacity, pair_cap,
+               valid_tiles_y) -> tuple:
+    """What the kernels take: the fields of _FIELDS with their dtypes,
+    N >= 1 rows each, all on the means' device; positive int tile, grid,
+    max_span and align; pair_cap None or a positive int; max_pairs and
+    tail_capacity None or ints >= 0; main_width an int >= 0; pairs,
+    tiles and gradient slots under 2^31; valid_tiles_y None, an int or a
+    one-element int32 tensor on the same device. Raises ValueError.
+    Returns the sizes the kernels run at: (slots a gaussian, whether
+    pair_cap compacts, the sorted prefix pk, the gradient slots)."""
+    dev = g.means2d.device
+    n = g.means2d.shape[0] if g.means2d.dim() == 2 else 0
+    for name, dtype, tail in _FIELDS:
+        v = getattr(g, name)
+        if (not isinstance(v, torch.Tensor) or v.dtype != dtype
+                or tuple(v.shape) != (n,) + tail or v.device != dev):
+            raise ValueError(f"bin_gaussians: {name} must be a {dtype} "
+                             f"tensor of shape {(n,) + tail} on {dev}, got "
+                             f"{getattr(v, 'dtype', type(v).__name__)} "
+                             f"{tuple(getattr(v, 'shape', ()))}")
+    if n < 1:
+        raise ValueError("bin_gaussians: no gaussians")
+    for name, v in (("tile", tile), ("n_tiles_x", n_tiles_x),
+                    ("n_tiles_y", n_tiles_y), ("max_span", max_span),
+                    ("align", align)):
+        if not _is_int(v) or v < 1:
+            raise ValueError(f"bin_gaussians: {name} must be a positive "
+                             f"int, got {v!r}")
+    for name, v, least in (("pair_cap", pair_cap, 1),
+                           ("max_pairs", max_pairs, 0),
+                           ("tail_capacity", tail_capacity, 0)):
+        if v is not None and (not _is_int(v) or v < least):
+            raise ValueError(f"bin_gaussians: {name} must be None or an int "
+                             f">= {least}, got {v!r}")
+    if not _is_int(main_width) or main_width < 0:
+        raise ValueError(f"bin_gaussians: main_width must be an int >= 0, "
+                         f"got {main_width!r}")
+    vty = valid_tiles_y
+    if vty is not None and not _is_int(vty) and not (
+            isinstance(vty, torch.Tensor) and vty.dtype == torch.int32
+            and vty.numel() == 1 and vty.device == dev):
+        raise ValueError(f"bin_gaussians: valid_tiles_y must be None, an int "
+                         f"or a one-element int32 tensor on {dev}")
+    cap = max_span * max_span
+    compact = pair_cap is not None and pair_cap < cap
+    if compact:
+        cap = pair_cap
+    pk = n * cap if max_pairs is None else min(max_pairs, n * cap)
+    pk = -(-pk // align) * align
+    pg = grad_capacity(pk, n_tiles_x * n_tiles_y, align)
+    if n_tiles_x * n_tiles_y >= 2**31 - 1 or n * cap >= 2**31 or pg >= 2**31:
+        raise ValueError("bin_gaussians: pairs, tiles or gradient slots "
+                         "past int32")
+    return cap, compact, pk, pg
+
+
+def bin_tiles_cuda(g: Gaussians2D, *, tile: int, n_tiles_x: int,
+                   n_tiles_y: int, max_span: int = 3, align: int = 128,
+                   max_pairs: int | None = None, main_width: int = 6,
+                   tail_capacity: int | None = None, cull: bool = True,
+                   pair_cap: int | None = None,
+                   valid_tiles_y=None) -> TileBinning:
+    """bin_gaussians on the card: the arguments checked (_check_bin),
+    then csrc/bin_tiles.cu on the current stream (the emit kernel, the
+    keys' stable torch.sort, the tile scan and slot kernels), and the
+    tail table by _tail_tables where the slots outnumber main_width. The
+    cull's threshold log(max(opacity, 1e-12) * 255) is torch's, so that
+    the kernel decides each pair on the plain version's bits. No host
+    wait. Returns the plain version's fields, integer for integer."""
+    if not g.means2d.is_cuda:
+        raise ValueError("bin_tiles_cuda needs CUDA tensors")
+    cap, compact, pk, pg = _check_bin(
+        g, tile=tile, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+        max_span=max_span, align=align, max_pairs=max_pairs,
+        main_width=main_width, tail_capacity=tail_capacity,
+        pair_cap=pair_cap, valid_tiles_y=valid_tiles_y)
+    lib = _lib()
+    dev = g.means2d.device
+    i32 = torch.int32
+    n = g.means2d.shape[0]
+    n_tiles = n_tiles_x * n_tiles_y
+    p = n * cap
+    mw = min(main_width, cap)
+    tail = cap > mw
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    thr = (torch.clamp_min(g.opacities, 1e-12).mul_(255.0).log_() if cull
+           else None)
+    keys = torch.empty(p, dtype=torch.int64, device=dev)
+    ps = torch.empty((n, cap), dtype=i32, device=dev)
+    span = torch.empty(n, dtype=i32, device=dev) if tail else None
+    tail_of_gauss = None if tail else torch.empty(n, dtype=i32, device=dev)
+    over_part = torch.empty(1, dtype=torch.int64, device=dev)
+    vty = valid_tiles_y
+    vty_dev = vty if isinstance(vty, torch.Tensor) else None
+    means, conics = g.means2d, g.conics
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    emit = _EmitArgs(
+        ptr(means), means.stride(0), means.stride(1), ptr(g.depths),
+        g.depths.stride(0), ptr(conics), conics.stride(0), conics.stride(1),
+        ptr(thr), ptr(g.radii), g.radii.stride(0), ptr(g.mask),
+        g.mask.stride(0), ptr(vty_dev),
+        2**62 if vty is None or vty_dev is not None else vty, n, tile,
+        n_tiles_x, n_tiles_y, max_span, cap, int(compact), pg - 1,
+        ptr(keys), ptr(ps), ptr(span), ptr(tail_of_gauss), ptr(over_part))
+    err = lib.bin_tiles_emit(ctypes.byref(emit), stream)
+    if err != 0:
+        raise RuntimeError(f"bin_tiles emit launch failed: cudaError {err}")
+    sorted_key, sorted_flat = torch.sort(keys, stable=True)
+
+    tile_offsets = torch.empty(n_tiles + 1, dtype=i32, device=dev)
+    grad_offsets = torch.empty(n_tiles + 1, dtype=i32, device=dev)
+    shift = torch.empty(n_tiles, dtype=i32, device=dev)
+    num_pairs = torch.empty((), dtype=i32, device=dev)
+    overflow = torch.empty((), dtype=i32, device=dev)
+    sorted_gauss = torch.empty(pk, dtype=i32, device=dev)
+    fin = _FinishArgs(
+        ptr(sorted_key), ptr(sorted_flat), p, min(pk, p), pk, cap, n_tiles,
+        align, pg, ptr(over_part), ptr(tile_offsets), ptr(grad_offsets),
+        ptr(shift), ptr(num_pairs), ptr(overflow), ptr(sorted_gauss),
+        ptr(ps))
+    err = lib.bin_tiles_finish(ctypes.byref(fin), stream)
+    if err != 0:
+        raise RuntimeError(f"bin_tiles launch failed: cudaError {err}")
+    LAUNCHES["bin_tiles"] += 1
+
+    if tail:
+        tail_slot, tail_of_gauss, tail_over = _tail_tables(
+            ps, span, mw, tail_capacity, align, pg - 1)
+        main_slot = ps[:, :mw].contiguous()
+        tail_of_gauss = tail_of_gauss.to(i32)
+        overflow = (overflow + tail_over).to(i32)
+    else:
+        tail_slot = torch.zeros((0, 0), dtype=i32, device=dev)
+        main_slot = ps
+    return TileBinning(
+        sorted_gauss=sorted_gauss, tile_offsets=tile_offsets,
+        grad_offsets=grad_offsets, main_slot=main_slot, tail_slot=tail_slot,
+        tail_of_gauss=tail_of_gauss, num_pairs=num_pairs, overflow=overflow,
+        pair_slot_capacity=pg)

@@ -17,9 +17,10 @@ The step number is a Python int here (the JAX step traces it), so the
 warmup gates, the laplacian ramp and the opacity-norm switch are
 decided on the host; the non-finite guard stays on the device
 (torch.where), so it never makes the step wait for the card (the
-binning's boolean-mask indexings do, ops/rasterizer/tiles.py::
-bin_gaussians, and so do the decode's copies of host data to the card,
-e.g. kinematics/lbs.py::batch_rigid_transform's tables). Every random
+decode's copies of host data to the card do, e.g.
+kinematics/lbs.py::batch_rigid_transform's tables; the binning,
+ops/rasterizer/tiles.py::bin_gaussians, waits only in its plain
+version). Every random
 draw of a step comes from losses.photometric.draw_step_randoms; a step
 also takes the draws as an argument.
 
