@@ -160,10 +160,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 its d/dpatches at the step's patches, the cotangent
                 laplacian's loss and gradient, knn_window_stat on the
                 canonical cloud, and against the exact dense statistic
-                (never under it); the banded laplacian rebuilt
-                (type standard) against the gather one; CUDA-event times
-                of the LPIPS term, the three laplacians and both KNN
-                statistics, the tables' host build times;
+                (never under it); CUDA-event times of the LPIPS term,
+                the gather and cotangent laplacians and both KNN
+                statistics, the laplacian tables' host build times;
                 rasterize_multi of two avatars bit for bit one rasterize
                 of their concatenation in one composite_fwd launch; one
                 chunk under ops/profiling.trace with span ranges, each
@@ -3949,9 +3948,9 @@ OPTIONS_DOTLIST = ["tpu.random_lpips_factor=0.05", "tpu.knn_backend=window",
 # input gradients 1.8% of the largest element apart on such patches. So
 # d/dpatches is held against the CPU's float64 gradient of the same
 # function: the card's relative L2 error within LPIPS_GRAD_FACTOR times
-# the CPU float32 gradient's own. The laplacians (card against CPU,
-# banded against gather) at the JAX package's tests/test_banded_laplacian.py
-# tolerances: loss rtol 1e-5, gradient rtol 1e-4 and atol 1e-6. The atol
+# the CPU float32 gradient's own. The cotangent laplacian (card against
+# CPU) at the JAX package's tests/test_banded_laplacian.py tolerances:
+# loss rtol 1e-5, gradient rtol 1e-4 and atol 1e-6. The atol
 # is absolute there and here: L x cancels at the inputs' scale (metres,
 # |x| ~ 1), so where the laplacian gradient is ~1e-3 its rounding is not
 # a share of that (a CPU rehearsal found one of 2,304 anchor gradients
@@ -4158,39 +4157,28 @@ def run_options(work: str, dev, smi: str, profile_dir: str | None) -> None:
         raise AssertionError("knn_window_stat underestimates the exact "
                              "statistic")
 
-    # ---- 17.3 the banded laplacian against the gather one
-    lap_cfg = tr.cfg.human.loss.laplacian
+    # ---- 17.3 the gather and cotangent laplacians' builds and times
     cot = tr.region_lap
     builds = {}
-    for kind, backend in (("cotangent", None), ("banded", "banded"),
-                          ("gather", "gather")):
-        if backend:
+    for kind in ("cotangent", "gather"):
+        if kind == "gather":
             # the standard laplacian at its own table width
-            lap_cfg.type = "standard"
-            tr.cfg.tpu.laplacian_backend = backend
+            tr.cfg.human.loss.laplacian.type = "standard"
             tr._lap_pad = None
         t1 = time.perf_counter()
         tr._rebuild_laplacians()
         builds[kind] = (time.perf_counter() - t1, tr.region_lap)
-    band, gather = builds["banded"][1], builds["gather"][1]
-    lb, gb = lap_value_grads(band, out, tr, dev)
-    lg, gg = lap_value_grads(gather, out, tr, dev)
-    close_rel("banded laplacian loss vs gather", lb.reshape(1),
-              lg.reshape(1), LAP_RTOL)
-    for name, a, b_ in zip(("anchors", "hands", "colour"), gb, gg):
-        close_rel(f"banded laplacian d/d{name} vs gather", a, b_,
-                  LAP_GRAD_RTOL, atol=LAP_GRAD_ATOL)
+    gather = builds["gather"][1]
     lap_ms = {kind: cuda_ms(lambda lap=lap: lap_value_grads(
         lap, out, tr, dev), n=10) for kind, lap in (
-            ("gather", gather), ("banded", band), ("cotangent", cot))}
+            ("gather", gather), ("cotangent", cot))}
     log(f"[options] laplacian loss + backward (3 fused terms, CUDA events)"
         f" {', '.join(f'{k_} {v:.4f} ms' for k_, v in lap_ms.items())}; "
         f"host builds {', '.join(f'{k_} {v[0]:.3f} s' for k_, v in builds.items())}"
-        f"; band width {band.band.shape[1]}, cotangent rows "
-        f"{tuple(cot.neighbors.shape)}, gather table "
+        f"; cotangent rows {tuple(cot.neighbors.shape)}, gather table "
         f"{tuple(gather.neighbors.shape)}; LPIPS term forward + backward "
         f"{lpips_ms:.4f} ms a step | {smi}")
-    del builds, band, gather, cot_cpu
+    del builds, gather, cot_cpu
 
     # ---- 17.4 rasterize_multi: two avatars, one launch
     alive_b = tr.buffers.alive > 0.5

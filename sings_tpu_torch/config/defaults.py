@@ -163,9 +163,10 @@ DEFAULTS = {
             # per-gaussian surviving-pair budget (tiles.py pair_cap);
             # None = full max_span^2 enumeration
             "pair_cap": None,
-            # chunk cumsum in the composite kernels: False = MXU
-            # triangular matmul, True = VPU pltpu.roll scan (A/B in
-            # docs/PERF.md; same numerics to f32 reassociation)
+            # the JAX package's chunk cumsum in the composite kernels:
+            # False = MXU triangular matmul, True = VPU pltpu.roll scan
+            # (same numerics to f32 reassociation). The port reads no
+            # such switch: its kernels have one scan for both
             "scan_roll": False,
             # "tiled" = tile-major kernel output + XLA relayout;
             # "panel" = 128px-wide image-layout panels with cross-tile
@@ -195,10 +196,11 @@ DEFAULTS = {
         # reference (PARITY.md); recipes enable it, default stays
         # reference-shaped
         "triplane_nested": False,
-        # region-laplacian apply backend: "gather" (neighbor tables) |
-        # "banded" (RCM-permuted banded MXU matmul, losses/
-        # regularizers.py::BandedRegionLaplacian) | "auto" (banded on
-        # the single-chip path at >= 32k capacity)
+        # region-laplacian apply backend, the JAX package's key: "gather"
+        # (neighbour tables) | "banded" (its TPU matrix-unit layout of the
+        # same laplacian) | "auto". The port builds the gather laplacian
+        # for all three (faster on the card than a band); any other value
+        # raises
         "laplacian_backend": "auto",
         # scale applied to loss.lpips_w when only RANDOM-FEATURE LPIPS
         # is available (no pretrained weights). The r4 ablation measured

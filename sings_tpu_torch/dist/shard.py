@@ -32,7 +32,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.graphics import Camera
-from ..tree import tree_leaves, tree_map
+from ..train.step import grad_leaves, leaf_grads
+from ..tree import tree_map
 from .collectives import broadcast_tree, pmean, world_rank, world_size
 
 # the step generators' seed stride between dp ranks (the JAX package
@@ -143,14 +144,9 @@ def make_sharded_step(mesh: Mesh, loss_strip_fn, n_strips: int):
         raise ValueError(f"{n_strips} strips on a mesh of gs={mesh.gs}")
 
     def step(params, frame):
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        p = grad_leaves(params)
         loss = loss_strip_fn(p, frame, mesh.gs_idx)
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        it = iter(grads)
-        grad_tree = tree_map(lambda _: next(it), p)
+        grad_tree, _ = leaf_grads(loss, p)
         return (pmean(loss, mesh.group),
                 tree_map(lambda g: pmean(g, mesh.group), grad_tree))
 

@@ -56,7 +56,8 @@ from ..ops.clip import clip
 from ..ops.graphics import Camera
 from ..ops.rasterizer.api import rasterize
 from ..train.step import (
-    StepConfig, _gate_grad, regularizer_terms, sh_degree_mask,
+    StepConfig, gate_outputs, grad_leaves, guarded_update, leaf_grads,
+    regularizer_terms, sh_degree_mask,
 )
 from ..tree import tree_leaves, tree_map
 from .collectives import all_gather_rows, pmax, psum
@@ -145,20 +146,15 @@ def make_frame_loss(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                    group):
         dev = buffers.alive.device
         bg = draws["bg"]
-        opt_geo = step >= step_cfg.opt_geo_from
-        opt_app = step >= step_cfg.opt_app_from
         deg_mask = sh_degree_mask(active_sh_degree, dev)
 
         # ---- decode this rank's capacity/gs shard only
         p_loc, b_loc = _slice_gaussian_state(
             params, buffers, strip_idx * gauss_shard, gauss_shard)
-        out_loc = avatar_forward(p_loc, b_loc, avatar_cfg, template, cache,
-                                 smpl_scale=frame.get("smpl_scale"),
-                                 dataset_idx=frame["idx"])
-        for k in ("xyz_canon", "xyz_offsets", "scales", "scales_canon"):
-            out_loc[k] = _gate_grad(out_loc[k], opt_geo)
-        for k in ("shs", "opacity"):
-            out_loc[k] = _gate_grad(out_loc[k], opt_app)
+        out_loc = gate_outputs(avatar_forward(
+            p_loc, b_loc, avatar_cfg, template, cache,
+            smpl_scale=frame.get("smpl_scale"), dataset_idx=frame["idx"]),
+            step_cfg, step)
         out_loc["shs"] = out_loc["shs"] * deg_mask[None, :, None]
         out = _gather_gaussians(out_loc, group)
 
@@ -339,7 +335,7 @@ def make_sharded_train_step(mesh: Mesh, avatar_cfg: AvatarConfig,
         cam = built if camera is None else camera
         if draws is None:
             draws = draw_step_randoms(generator, frame["mask"], pw)
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        p = grad_leaves(params)
         probe = torch.zeros((avatar_cfg.capacity, 2),
                             device=buffers.alive.device, requires_grad=True)
         loss_local, aux = frame_loss(
@@ -347,12 +343,8 @@ def make_sharded_train_step(mesh: Mesh, avatar_cfg: AvatarConfig,
             int(active_sh_degree), own_rows(region_lap_pos),
             own_rows(region_lap_color), lap_pos_w, lap_color_w,
             mesh.gs_idx, mesh.gs_group)
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(loss_local, leaves + [probe],
-                                    allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves + [probe], grads)]
-        probe_grad = grads.pop()
+        grad_tree, probe_grad = leaf_grads(loss_local, p, probe)
+        grads = tree_leaves(grad_tree)
         # the loss terms and gradients: summed over gs and averaged over
         # dp (JAX's pmean(psum(., gs), dp)), in one all_reduce over the
         # mesh outside the gradient
@@ -380,17 +372,8 @@ def make_sharded_train_step(mesh: Mesh, avatar_cfg: AvatarConfig,
             active_sh_degree, region_lap_pos, region_lap_color, lap_pos_w,
             lap_color_w, draws, camera)
 
-        # non-finite guard: skip the whole update (params and moments)
-        finite = torch.isfinite(metrics["loss"])
-        for g in tree_leaves(grads):
-            finite = finite & torch.isfinite(g).all()
-        new_params, new_state = tx.update(grads, opt_state, params)
-
-        def keep(new, old):
-            return torch.where(finite, new.detach(), old)
-
-        params = tree_map(keep, new_params, params)
-        opt_state = tree_map(keep, new_state, opt_state)
+        params, opt_state, finite = guarded_update(
+            tx, grads, opt_state, params, metrics["loss"])
 
         # density statistics: the probe gradient back to the full image's
         # NDC convention (rasterize scaled it by the strip window's

@@ -12,8 +12,6 @@ Every term works on the padded static buffers with an `alive` mask:
     runs on the host after each topology change);
   * CotRegionLaplacian: the cotangent laplacian over overlapping
     region partitions, weights frozen at the build;
-  * BandedRegionLaplacian: the uniform laplacian in a reverse
-    Cuthill-McKee order, applied as skewed dense blocks of its band;
   * ShardedRegionLaplacian: the uniform laplacian's rows split over the
     gs ranks (shard_region_laplacian), each rank's term a local
     contribution whose rank-sum is the full term.
@@ -21,9 +19,9 @@ Every term works on the padded static buffers with an `alive` mask:
 The uniform laplacian's "gather" backend: the forward is a neighbour
 gather and its gradient is PyTorch's autograd of it (a scatter-add,
 where JAX uses a custom transposed gather; the same sums in another
-order). The cotangent and banded laplacians keep the JAX package's
-custom adjoints as autograd Functions: a gather over a host-built
-transposed table, the inverse permutation, the transposed band.
+order). The cotangent and sharded laplacians keep the JAX package's
+custom adjoint as an autograd Function: a gather over a host-built
+transposed table.
 """
 from __future__ import annotations
 
@@ -413,178 +411,6 @@ def build_cot_region_laplacian(verts: np.ndarray, faces: np.ndarray,
     return CotRegionLaplacian(
         neighbors=t(nb), nbr_w=t(nw), t_neighbors=t(nbt), t_w=t(nwt),
         label=t(lbl.astype(np.int32)), row_w=t(row_w),
-        weights=t(np.asarray(region_weights, np.float32)))
-
-
-# ---------------------------------------------------------------------------
-# The banded region laplacian (tpu.laplacian_backend: banded): the uniform
-# laplacian in a reverse Cuthill-McKee order, where every edge has
-# |i - j| <= B, so L is a band of width W = 2B + 1 applied as blocked
-# dense matmuls (each block's band skewed into a dense (R, R + W - 1) tile
-# by a pad and a reshape) after one permutation gather of the inputs.
-
-
-class _PermRows(torch.autograd.Function):
-    """x[perm], whose adjoint is g[inv_perm] (a gather, no scatter)."""
-
-    @staticmethod
-    def forward(ctx, x, perm, inv_perm):
-        ctx.save_for_backward(inv_perm)
-        return x[perm.long()]
-
-    @staticmethod
-    def backward(ctx, g):
-        (inv_perm,) = ctx.saved_tensors
-        return g[inv_perm.long()], None, None
-
-
-# blocks of _band_apply_raw in one batched matmul (memory only)
-BAND_BLOCKS_PER_PASS = 64
-
-
-def _band_apply_raw(band: torch.Tensor, x: torch.Tensor,
-                    rblk: int = 512) -> torch.Tensor:
-    """y_i = sum_k band[i, k] x[i + k - B] as one float32 matmul per
-    block of rblk rows: padding each band row to W + R and reflattening
-    at stride W + R - 1 lands row i's entries at columns [i, i + W) of
-    a dense (R, R + W - 1) tile, multiplied by the block's input window
-    (BAND_BLOCKS_PER_PASS blocks in one batched matmul)."""
-    c, w = band.shape
-    f = x.shape[1]
-    b = (w - 1) // 2
-    nblk = -(-c // rblk)
-    xp = torch.nn.functional.pad(x, (0, 0, b, b + nblk * rblk - c))
-    bandp = torch.nn.functional.pad(band, (0, 0, 0, nblk * rblk - c))
-    span = rblk + w - 1
-    out = []
-    for i0 in range(0, nblk, BAND_BLOCKS_PER_PASS):
-        nb_ = min(BAND_BLOCKS_PER_PASS, nblk - i0)
-        bb = bandp[i0 * rblk: (i0 + nb_) * rblk].reshape(nb_, rblk, w)
-        d = torch.nn.functional.pad(bb, (0, rblk)).reshape(nb_, -1)
-        d = d[:, : rblk * span].reshape(nb_, rblk, span)
-        xw = xp[i0 * rblk: (i0 + nb_ - 1) * rblk + span].unfold(
-            0, span, rblk).transpose(1, 2)               # (nb_, span, f)
-        out.append(torch.matmul(d, xw).reshape(-1, f))
-    return torch.cat(out)[:c]
-
-
-class _BandMatvec(torch.autograd.Function):
-    """L x through the band; the adjoint L^T g through band_t."""
-
-    @staticmethod
-    def forward(ctx, band, band_t, x):
-        ctx.save_for_backward(band_t)
-        return _band_apply_raw(band, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (band_t,) = ctx.saved_tensors
-        return None, None, _band_apply_raw(band_t, g.contiguous())
-
-
-class BandedRegionLaplacian(NamedTuple):
-    """RegionLaplacian's loss in band storage (permuted order).
-
-      band/band_t:      (C, W) rows of L and L^T in RCM order, W = 2B + 1
-      perm:             (C,) original slot of each permuted row
-      inv_perm:         its inverse
-      label/vert_valid: per vertex, in permuted order
-      inv_count/weights: per region
-    """
-
-    band: torch.Tensor
-    band_t: torch.Tensor
-    perm: torch.Tensor
-    inv_perm: torch.Tensor
-    label: torch.Tensor
-    vert_valid: torch.Tensor
-    inv_count: torch.Tensor
-    weights: torch.Tensor
-
-    def loss(self, x, region_weights=None, regions=None):
-        (out,) = self.loss_fused([(x, region_weights, regions)])
-        return out
-
-    def loss_fused(self, terms):
-        xcat = torch.cat([t[0] for t in terms], dim=-1)
-        xp = _PermRows.apply(xcat, self.perm, self.inv_perm)
-        lx = _BandMatvec.apply(self.band, self.band_t, xp)
-        return _region_sums(lx, terms, self.label.long(), self.weights,
-                            row_mask=self.vert_valid,
-                            inv_count=self.inv_count)
-
-
-def build_region_laplacian_banded(edges: np.ndarray,
-                                  vertex_label: np.ndarray,
-                                  region_weights: np.ndarray,
-                                  num_regions: int = 15,
-                                  pad_width: int | None = None,
-                                  width_fn=None,
-                                  device="cpu") -> BandedRegionLaplacian:
-    """Host-side RCM order and band tables. pad_width: least W
-    (grow-only callers keep the shapes); width_fn: raw W -> padded W,
-    applied before pad_width, so that one build sizes the band."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
-    labels = np.asarray(vertex_label).astype(np.int64)
-    edges = np.asarray(edges)
-    c = labels.shape[0]
-
-    in_region = (labels >= 0) & (labels < num_regions)
-    if len(edges):
-        edge_lbl = labels[edges]
-        same = (edge_lbl[:, 0] == edge_lbl[:, 1]) & in_region[edges[:, 0]]
-        sel = edges[same]
-    else:
-        sel = np.zeros((0, 2), np.int64)
-
-    if len(sel):
-        m = coo_matrix(
-            (np.ones(len(sel) * 2),
-             (np.r_[sel[:, 0], sel[:, 1]], np.r_[sel[:, 1], sel[:, 0]])),
-            shape=(c, c)).tocsr()
-        perm = np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
-                          dtype=np.int64)
-    else:
-        perm = np.arange(c, dtype=np.int64)
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(c)
-
-    src = np.concatenate([sel[:, 0], sel[:, 1]])
-    dst = np.concatenate([sel[:, 1], sel[:, 0]])
-    ps, pd = inv[src], inv[dst]
-    bw = int(np.abs(ps - pd).max()) if len(ps) else 0
-    w = 2 * bw + 1
-    if width_fn is not None:
-        w = max(w, int(width_fn(w)))
-    if pad_width is not None:
-        w = max(w, pad_width)
-    b = (w - 1) // 2
-
-    deg = np.bincount(ps, minlength=c).astype(np.float32)
-    wval = 1.0 / np.maximum(deg[ps], 1.0)
-
-    band = np.zeros((c, w), np.float32)
-    band_t = np.zeros((c, w), np.float32)
-    np.add.at(band, (ps, pd - ps + b), wval)
-    np.add.at(band_t, (pd, ps - pd + b), wval)
-    valid_p = in_region[perm]
-    diag = np.where(valid_p, -1.0, 0.0).astype(np.float32)
-    band[np.arange(c), b] += diag
-    band_t[np.arange(c), b] += diag
-
-    counts = np.bincount(labels[in_region], minlength=num_regions)
-
-    def t(x):
-        return torch.as_tensor(x, device=device)
-
-    return BandedRegionLaplacian(
-        band=t(band), band_t=t(band_t), perm=t(perm.astype(np.int32)),
-        inv_perm=t(inv.astype(np.int32)),
-        label=t(np.where(in_region, labels, 0)[perm].astype(np.int32)),
-        vert_valid=t(valid_p.astype(np.float32)),
-        inv_count=t((1.0 / np.maximum(counts, 1)).astype(np.float32)),
         weights=t(np.asarray(region_weights, np.float32)))
 
 

@@ -48,9 +48,6 @@ class RasterConfig(NamedTuple):
     tail_capacity: int | None = None
     cull: bool = True
     pair_cap: int | None = None
-    # the JAX package's in-kernel cumsum switch; one scan serves both
-    # settings here (same sums, f32 reassociation)
-    scan_roll: bool = False
     layout: str = "tiled"
     # the render owns only its first valid_rows pixel rows (balanced
     # strips of sharded training): tile rows past them bin no pairs
@@ -223,8 +220,7 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
               max_span: int = 5, max_pairs: int | None = None,
               main_width: int = 6, tail_capacity: int | None = None,
               cull: bool = True, pair_cap: int | None = None,
-              scan_roll: bool = False, layout: str = "tiled",
-              valid_rows=None) -> dict:
+              layout: str = "tiled", valid_rows=None) -> dict:
     """Differentiable gaussian splatting to an image.
 
     backend "pallas" (the JAX package's name, kept so callers pass the
@@ -257,8 +253,7 @@ def rasterize(means3d, scales, quats, opacities, features, camera: Camera,
             height=camera.height, width=camera.width, tile=tile,
             chunk=chunk, max_span=max_span, max_pairs=max_pairs,
             main_width=main_width, tail_capacity=tail_capacity, cull=cull,
-            pair_cap=pair_cap, scan_roll=scan_roll, layout=layout,
-            row_limit=valid_rows is not None)
+            pair_cap=pair_cap, layout=layout, row_limit=valid_rows is not None)
         inputs = (g2d.means2d, g2d.conics, g2d.colors, g2d.opacities)
         want_state = torch.is_grad_enabled() and any(
             x.requires_grad for x in inputs)

@@ -10,6 +10,9 @@ guard, and the density statistics from the screen_probe gradient.
 make_train_scan chains K steps in a Python loop, with the KNN edge
 statistic computed once at the head of the chunk when asked
 (knn_backend "chunk"); "dense" and "window" compute it every step.
+The step's output gates (gate_outputs), leaf gradient (grad_leaves,
+leaf_grads) and guarded Adam update (guarded_update) are shared with
+dist/train_sharded.py's step.
 With an LPIPS network the photometric loss adds the LPIPS term on the
 masked patches, its gradient by autograd through the VGG features.
 
@@ -98,9 +101,53 @@ def _gate_grad(x: torch.Tensor, flag: bool) -> torch.Tensor:
     return x if flag else x.detach()
 
 
-def _zeros_for_none(grads, leaves):
-    return [torch.zeros_like(x) if g is None else g
-            for x, g in zip(leaves, grads)]
+def gate_outputs(out: dict, step_cfg: StepConfig, step: int) -> dict:
+    """avatar_forward's outputs with the decoder-warmup gates: the
+    geometry outputs pass a gradient from opt_geo_from on, the
+    appearance outputs from opt_app_from on."""
+    opt_geo = step >= step_cfg.opt_geo_from
+    opt_app = step >= step_cfg.opt_app_from
+    for k in ("xyz_canon", "xyz_offsets", "scales", "scales_canon"):
+        out[k] = _gate_grad(out[k], opt_geo)
+    for k in ("shs", "opacity"):
+        out[k] = _gate_grad(out[k], opt_app)
+    return out
+
+
+def grad_leaves(params):
+    """Detached copies of params' leaves that require a gradient: the
+    leaves a step differentiates (leaf_grads)."""
+    return tree_map(lambda x: x.detach().requires_grad_(True), params)
+
+
+def leaf_grads(loss: torch.Tensor, p, probe: torch.Tensor | None = None):
+    """d loss / d p as a tree like p (zeros for the leaves the loss does
+    not use), and d loss / d probe when a screen probe is passed (else
+    None). p: grad_leaves' tree."""
+    leaves = tree_leaves(p) + ([] if probe is None else [probe])
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    probe_grad = grads.pop() if probe is not None else None
+    it = iter(grads)
+    return tree_map(lambda _: next(it), p), probe_grad
+
+
+def guarded_update(tx, grads, opt_state, params, loss: torch.Tensor):
+    """tx.update behind the non-finite guard: where the loss or any
+    gradient is not finite, the whole update is skipped (parameters and
+    moments), on the device (torch.where, no host wait). Returns
+    (params, opt_state, finite)."""
+    finite = torch.isfinite(loss.detach())
+    for g in tree_leaves(grads):
+        finite = finite & torch.isfinite(g).all()
+    new_params, new_state = tx.update(grads, opt_state, params)
+
+    def keep(new, old):
+        return torch.where(finite, new.detach(), old)
+
+    return (tree_map(keep, new_params, params),
+            tree_map(keep, new_state, opt_state), finite)
 
 
 def regularizer_terms(step_cfg: StepConfig, out: dict,
@@ -194,21 +241,16 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                 draws = draw_step_randoms(generator, batch["mask"],
                                           w.photometric)
         bg = draws["bg"]
-        opt_geo = step >= step_cfg.opt_geo_from
-        opt_app = step >= step_cfg.opt_app_from
         with span("step.decode"):
             deg_mask = sh_degree_mask(active_sh_degree, dev)
 
-            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            p = grad_leaves(params)
             probe = torch.zeros((avatar_cfg.capacity, 2), device=dev,
                                 requires_grad=True)
-            out = avatar_forward(p, buffers, avatar_cfg, template, cache,
-                                 smpl_scale=batch.get("smpl_scale"),
-                                 dataset_idx=batch["idx"])
-            for k in ("xyz_canon", "xyz_offsets", "scales", "scales_canon"):
-                out[k] = _gate_grad(out[k], opt_geo)
-            for k in ("shs", "opacity"):
-                out[k] = _gate_grad(out[k], opt_app)
+            out = gate_outputs(avatar_forward(
+                p, buffers, avatar_cfg, template, cache,
+                smpl_scale=batch.get("smpl_scale"),
+                dataset_idx=batch["idx"]), step_cfg, step)
 
         with span("step.rasterize"):
             shs = out["shs"] * deg_mask[None, :, None]
@@ -249,26 +291,11 @@ def make_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                      + lap_color_loss + hand_lap)
 
         with span("step.backward"):
-            leaves = tree_leaves(p)
-            grads = torch.autograd.grad(total, leaves + [probe],
-                                        allow_unused=True)
-            grads = _zeros_for_none(grads, leaves + [probe])
-            probe_grad = grads.pop()
-            it = iter(grads)
-            grad_tree = tree_map(lambda _: next(it), p)
+            grad_tree, probe_grad = leaf_grads(total, p, probe)
 
         with span("step.update"):
-            # non-finite guard: skip the whole update (params and moments)
-            finite = torch.isfinite(total.detach())
-            for g in grads:
-                finite = finite & torch.isfinite(g).all()
-            new_params, new_state = tx.update(grad_tree, opt_state, params)
-
-            def keep(new, old):
-                return torch.where(finite, new.detach(), old)
-
-            params = tree_map(keep, new_params, params)
-            opt_state = tree_map(keep, new_state, opt_state)
+            params, opt_state, finite = guarded_update(
+                tx, grad_tree, opt_state, params, total)
 
             # density-control statistics
             acc = pkg["visibility_filter"] & finite

@@ -12,7 +12,7 @@ Trainer(cfg, mode="train") also builds the optimizer and its state, the
 loss weights and StepConfig from the YAML keys (the LPIPS term with
 random features at lpips_w * random_lpips_factor unless pretrained
 weights are given, the dense, chunk or windowed KNN statistic), the
-region laplacian (standard by gather or banded, or cotangent), the
+region laplacian (the standard one's gather table, or cotangent), the
 LPIPS network, self.train_step / self.train_scan,
 and resumes from the latest checkpoint (params, buffers, Adam state,
 step) or pre-fits the decoders. train() is the JAX package's loop:
@@ -77,7 +77,7 @@ from ..losses.lpips import get_lpips, lpips_distance
 from ..losses.photometric import PhotometricWeights
 from ..losses.regularizers import (
     L2NormConfig, build_cot_region_laplacian, build_region_laplacian,
-    build_region_laplacian_banded, edge_stat, shard_region_laplacian,
+    edge_stat, shard_region_laplacian,
 )
 from ..model.avatar import (
     AvatarConfig, avatar_forward, avatar_forward_chunk, fit_initial_attrs,
@@ -114,7 +114,6 @@ def default_raster_kw(cfg, device: torch.device) -> dict:
     kw = dict(tile=r.tile, chunk=r.chunk, max_span=r.max_span,
               max_pairs=r.max_pairs, main_width=r.main_width,
               tail_capacity=r.tail_capacity, pair_cap=r.get("pair_cap"),
-              scan_roll=bool(r.get("scan_roll", False)),
               layout=r.get("layout", "tiled"))
     if device.type != "cuda":
         # the JAX package's CPU path composites in 8-pair chunks; use the
@@ -416,7 +415,6 @@ class Trainer:
             device=dev)
         self._lap_pad = None
         self._lap_rows_pad = None
-        self._lap_band_pad = None
         self._rebuild_laplacians()
 
         self.density_cfg = dict(dc)
@@ -451,13 +449,10 @@ class Trainer:
                 f"image height {self.camera.height} must split into gs={gs}"
                 " strips (use dataset.downscale or gs that divides it)")
         assert capacity % gs == 0  # capacity is 256-aligned
-        lap_type = str(cfg.human.loss.laplacian.type)
-        backend = str(cfg.tpu.get("laplacian_backend", "auto"))
-        if lap_type == "cotangent" or backend == "banded":
+        if str(cfg.human.loss.laplacian.type) == "cotangent":
             raise ValueError(
-                f"tpu.mesh with laplacian.type={lap_type!r}, "
-                f"tpu.laplacian_backend={backend!r}: the sharded step splits"
-                " the standard laplacian's gather tables by rows")
+                "tpu.mesh with laplacian.type='cotangent': the sharded step "
+                "splits the standard laplacian's gather tables by rows")
         from ..dist.shard import (
             balanced_strip_bounds, dp_generator, make_mesh,
         )
@@ -518,8 +513,9 @@ class Trainer:
 
     def _rebuild_laplacians(self) -> None:
         """Region laplacian of the live mesh: laplacian.type standard
-        (tpu.laplacian_backend gather, or banded; "auto" means gather in
-        the port) or cotangent (weights at the canonical anchors, frozen
+        (the gather table for every tpu.laplacian_backend: "banded" names
+        the JAX package's TPU layout of the same laplacian, slower on the
+        card) or cotangent (weights at the canonical anchors, frozen
         until the next rebuild); every padded shape grows only."""
         b = self.buffers
         edges = b.edges.cpu().numpy()[b.edge_valid.cpu().numpy() > 0.5]
@@ -538,35 +534,18 @@ class Trainer:
                                      self.region_lap.neighbors.shape[0])
         elif lap_type == "standard":
             backend = str(self.cfg.tpu.get("laplacian_backend", "auto"))
-            if backend == "banded":
-                def bucketed(raw_w: int) -> int:
-                    # grow-only, 64-bucketed half-width with 12% headroom
-                    # from the raw RCM bandwidth
-                    bw_pad = -(-max(int((raw_w - 1) // 2 * 1.12), 1)
-                               // 64) * 64
-                    return 2 * bw_pad + 1
-
-                self.region_lap = build_region_laplacian_banded(
-                    edges, labels, lap_w, num_regions=15,
-                    width_fn=bucketed, pad_width=self._lap_band_pad,
-                    device=self.device)
-                self._lap_band_pad = self.region_lap.band.shape[1]
-                print(f"[laplacian] banded backend, band width "
-                      f"{self._lap_band_pad}", flush=True)
-            elif backend in ("auto", "gather"):
-                self.region_lap = build_region_laplacian(
-                    edges, labels, lap_w, num_regions=15,
-                    pad_to=self._lap_pad or 8, device=self.device)
-            else:
+            if backend not in ("auto", "gather", "banded"):
                 raise ValueError(f"tpu.laplacian_backend={backend!r}")
+            self.region_lap = build_region_laplacian(
+                edges, labels, lap_w, num_regions=15,
+                pad_to=self._lap_pad or 8, device=self.device)
         else:
             # 'norm' raises in the JAX package (and its reference) too
             raise NotImplementedError(
                 f"laplacian.type={lap_type!r} (supported: 'standard', "
                 "'cotangent')")
-        if hasattr(self.region_lap, "neighbors"):
-            self._lap_pad = max(self._lap_pad or 8,
-                                self.region_lap.neighbors.shape[1])
+        self._lap_pad = max(self._lap_pad or 8,
+                            self.region_lap.neighbors.shape[1])
         if getattr(self, "mesh", None) is not None:
             # this rank's rows of the laplacian
             self.region_lap_mesh = shard_region_laplacian(

@@ -27,8 +27,9 @@ Deviations from the JAX signatures:
   * the step draws come from one torch.Generator per case, seeded from
     the case's seed and its index (JAX folds the case index into one
     pool key);
-  * laplacian.type cotangent and tpu.laplacian_backend banded raise
-    (JAX's pool fails there too: its stacking reads the gather tables).
+  * laplacian.type cotangent raises (JAX's pool fails there too: its
+    stacking reads the gather tables). tpu.laplacian_backend banded
+    trains, on the gather tables every backend builds in the port.
 """
 from __future__ import annotations
 
@@ -71,16 +72,12 @@ def check_case_cfg(cfg) -> None:
     if int(mesh.get("dp", 1) or 1) * int(mesh.get("gs", 1) or 1) > 1:
         raise ValueError("tpu.mesh and simultaneous cases are exclusive - "
                          "the pool lays out the cases itself")
-    lap_type = str(cfg.human.loss.laplacian.type)
-    backend = str(cfg.tpu.get("laplacian_backend", "auto"))
-    if lap_type == "cotangent" or backend == "banded":
+    if str(cfg.human.loss.laplacian.type) == "cotangent":
         raise NotImplementedError(
-            f"laplacian.type={lap_type!r}, tpu.laplacian_backend="
-            f"{backend!r}: the case pool stacks the standard gather "
-            "laplacian's tables only; the JAX package's pool fails here "
-            "too (_unify_laps reads region_lap.neighbors, which the banded "
-            "laplacian lacks; shard_region_laplacian reads nbr_valid, "
-            "which the cotangent one lacks)")
+            "laplacian.type='cotangent': the case pool stacks the standard "
+            "gather laplacian's tables only; the JAX package's pool fails "
+            "here too (shard_region_laplacian reads nbr_valid, which the "
+            "cotangent laplacian lacks)")
 
 
 class CasePool:

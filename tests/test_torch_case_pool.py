@@ -7,8 +7,8 @@ laplacian-width unification, and the padded frame count from kit
 directories. Then the port's whole CasePool.train() at tiny size on the
 CPU (two in-memory kits of 8 and 6 frames, 3 steps, a validation event
 at step 2) with the asserts of tests/test_case_pool.py; the laplacian
-types and layouts the pool refuses; and cli.train_batch.main in both
-modes.
+type and the mesh the pool refuses, and the pool built with
+tpu.laplacian_backend banded; and cli.train_batch.main in both modes.
 """
 import json
 import os
@@ -198,8 +198,6 @@ def test_case_pool_two_cases(tmp_path):
 @pytest.mark.parametrize("extra,err,match", [
     (["human.loss.laplacian.type=cotangent"], NotImplementedError,
      "pool fails here too"),
-    (["tpu.laplacian_backend=banded"], NotImplementedError,
-     "pool fails here too"),
     (["tpu.mesh={'dp': 1, 'gs': 2}"], ValueError, "exclusive"),
 ])
 def test_case_pool_refusals(tmp_path, extra, err, match):
@@ -209,6 +207,21 @@ def test_case_pool_refusals(tmp_path, extra, err, match):
     # gs > 1 needs a process group of gs ranks (tests/test_torch_dist_gs2)
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         CasePool(cfgs[:1], gs=2, device="cpu", kits=[_tiny_kit(4)])
+
+
+def test_case_pool_builds_with_banded_backend(tmp_path):
+    """tpu.laplacian_backend banded on a case: the port builds the
+    gather laplacian for it, so the pool stacks both cases' tables
+    (JAX's pool fails here: its banded laplacian has no neighbour
+    table)."""
+    cfgs = [_case_cfg(tmp_path, 0),
+            _case_cfg(tmp_path, 1, ["tpu.laplacian_backend=banded"])]
+    pool = CasePool(cfgs, device="cpu", kits=[_tiny_kit(4), _tiny_kit(4)])
+    ta, tb = pool.trainers
+    assert tb.cfg.tpu.laplacian_backend == "banded"
+    assert type(ta.region_lap) is type(tb.region_lap)
+    assert torch.equal(tb.region_lap.neighbors, ta.region_lap.neighbors)
+    assert pool._rlap.neighbors.shape[0] == 2
 
 
 # ---------------------------------------------------------------------------

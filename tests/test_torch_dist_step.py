@@ -8,7 +8,9 @@ port on a module-scoped gloo world of 4 ranks (tests/torch_dist_work.
 py), both with SGD at learning rate 1 that keeps the gradients, the
 port on JAX's draws. Held: at (1, 1) (no process group) every metric,
 gradient and density buffer against JAX's (1, 1) and against the
-port's single-card step, at tests/test_dist.py's (1, 1) tolerances; at
+port's single-card step, at tests/test_dist.py's (1, 1) tolerances, and
+a NaN frame skipped by the non-finite guard as the single-card step
+skips it; at
 (1, 4) the same against JAX's (1, 4) (the decompositions are equal) and
 the loss and gradients against the port's (1, 1) at tests/test_dist.
 py's gs-4 tolerances; at (2, 2), each dp rank on its own frame, a rerun
@@ -18,6 +20,7 @@ against JAX's (2, 2) on the same frames.
 import jax
 import numpy as np
 import pytest
+import torch
 
 import torch_dist_setup as S
 from sings_tpu_torch.tree import tree_leaves
@@ -57,6 +60,44 @@ def test_mesh11_matches_single_card_step(port11):
     S.check_metrics(port11["metrics"], _np_tree(m))
     S.check_grads(port11["grads"], tree_leaves(_np_tree(o["g"])))
     S.check_density(port11["buffers"], _np_tree(b))
+
+
+def test_mesh11_nonfinite_step_is_skipped():
+    """tests/test_torch_train_step.py::test_nonfinite_step_is_skipped on
+    the sharded step at (1, 1), with the port's Adam: a NaN frame leaves
+    the parameters, the Adam state and the density buffers as they were;
+    a good frame still updates."""
+    from sings_tpu_torch.dist.shard import make_mesh
+    from sings_tpu_torch.dist.train_sharded import make_sharded_train_step
+    from sings_tpu_torch.losses.regularizers import shard_region_laplacian
+    from sings_tpu_torch.train.optim import (
+        LRConfig, TrainFlags, make_optimizer,
+    )
+
+    s = _t_tree(S.port_setup())
+    tx = make_optimizer(LRConfig(), TrainFlags())
+    fn = make_sharded_train_step(
+        make_mesh(1, dp=1), s["cfg"], s["step_cfg"], s["template"],
+        s["camera"], tx, s["lpips"], s["raster"])
+    srl = shard_region_laplacian(s["lap"], 1)
+    params, buffers, state = s["params"], s["buffers"], tx.init(s["params"])
+    d = _t_tree(S.draws(RNG, 1)[0])
+    bad = dict(s["frame"], rgb=s["frame"]["rgb"] * float("nan"))
+
+    def run(frame):
+        return fn(params, buffers, state, s["cache"], frame, None, 0, 0,
+                  srl, srl, s["lap_w"], s["lap_w"], draws=d)
+
+    np_, nb, no, m = run(bad)
+    assert float(m["skipped"]) == 1.0
+    for a, b in zip(tree_leaves((np_, no)), tree_leaves((params, state))):
+        assert torch.equal(a, b)
+    for f in ("max_radii2d", "xyz_grad_accum", "grad_denom"):
+        assert torch.equal(getattr(nb, f), getattr(buffers, f))
+    np_, nb, no, m = run(s["frame"])
+    assert float(m["skipped"]) == 0.0 and np.isfinite(float(m["loss"]))
+    assert int(no.count) == int(state.count) + 1
+    assert not torch.equal(np_.xyz, params.xyz)
 
 
 def test_mesh14_matches_jax_and_gs1(world, port11):

@@ -2,9 +2,11 @@
 
 Each on the same numpy inputs as the JAX package's function, at the
 tolerance stated where it is compared: the cotangent laplacian
-(tests/test_fields_losses.py's grid mesh) and the banded laplacian
-(tests/test_banded_laplacian.py's random meshes), their tables equal
-and their losses and gradients at those files' tolerances; the LPIPS
+(tests/test_fields_losses.py's grid mesh), its tables equal and its
+losses and gradients at that file's tolerances; the gather laplacian,
+which the port builds for every tpu.laplacian_backend, against JAX's
+gather and banded laplacians on tests/test_banded_laplacian.py's random
+meshes at that file's tolerances; the LPIPS
 distance's gradient against jax.grad with JAX's own random features,
 on random and on clipped, flat patches (max-pool ties), and the
 tpu.lpips_weights npz path; densify_and_prune_vanilla;
@@ -30,9 +32,9 @@ from sings_tpu_torch.ops.rasterizer import api as tapi
 from sings_tpu_torch.ops.rasterizer import kernels as tk
 from sings_tpu_torch.ops.rasterizer.multi import rasterize_multi as tmulti
 
-# banded against gather and port against JAX: the JAX package's
-# tests/test_banded_laplacian.py tolerances (loss rtol 1e-5, gradient
-# rtol 1e-4 with atol 1e-6 of the largest value)
+# the uniform laplacian's layouts against each other and port against
+# JAX: the JAX package's tests/test_banded_laplacian.py tolerances (loss
+# rtol 1e-5, gradient rtol 1e-4 with atol 1e-6 of the largest value)
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-4, 1e-6
 
 
@@ -128,7 +130,7 @@ def test_cot_edge_weights_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# the banded laplacian
+# the gather laplacian against JAX's gather and banded ones
 
 def _random_mesh(c=300, n_edges=900, regions=4, seed=0, dead_frac=0.1):
     """tests/test_banded_laplacian.py::random_mesh."""
@@ -143,46 +145,48 @@ def _random_mesh(c=300, n_edges=900, regions=4, seed=0, dead_frac=0.1):
 
 
 @pytest.mark.parametrize("seed,c", [(0, 300), (1, 300), (2, 1100)])
-def test_banded_laplacian_matches_jax_and_gather(seed, c, monkeypatch):
-    """c 1100: three 512-row blocks, the last one partial, in two
-    passes."""
-    monkeypatch.setattr(treg, "BAND_BLOCKS_PER_PASS", 2)
+def test_gather_laplacian_matches_jax_banded_and_gather(seed, c):
+    """c 1100: JAX's band in three 512-row blocks, the last one
+    partial."""
     labels, e, x, w = _random_mesh(c=c, n_edges=3 * c, seed=seed)
-    jl = jreg.build_region_laplacian_banded(e, labels, w, num_regions=15)
-    tl = treg.build_region_laplacian_banded(e, labels, w, num_regions=15)
-    tables_equal(tl, jl)
-    tg = treg.build_region_laplacian(e, labels, w, num_regions=15)
+    jb = jreg.build_region_laplacian_banded(e, labels, w, num_regions=15)
+    jg = jreg.build_region_laplacian(e, labels, w, num_regions=15)
+    tl = treg.build_region_laplacian(e, labels, w, num_regions=15)
+    tables_equal(tl, jg)
     y = np.random.RandomState(seed + 3).randn(*x.shape).astype(np.float32)
     for terms in ([(x, None, None)], [(x, None, [1, 2])],
                   [(x, None, None), (y, np.ones(15, np.float32), [6, 7])]):
         lt, gt = _loss_and_grads(tl, terms)
-        lj, gj = _jax_loss_and_grads(jl, terms)
-        lg, gg = _loss_and_grads(tg, terms)
-        np.testing.assert_allclose(lt, lj, rtol=LOSS_RTOL)
+        lb, gb = _jax_loss_and_grads(jb, terms)
+        lg, gg = _jax_loss_and_grads(jg, terms)
+        np.testing.assert_allclose(lt, lb, rtol=LOSS_RTOL)
         np.testing.assert_allclose(lt, lg, rtol=LOSS_RTOL)
-        for a, b, g in zip(gt, gj, gg):
+        for a, b, g in zip(gt, gb, gg):
             _grad_close(a, b)
             _grad_close(a, g)
 
 
-def test_banded_no_edges_and_pad_width():
+def test_gather_laplacian_no_edges_and_pad_width():
+    """No edges: every labelled row is -x, as JAX's band has it. A wider
+    pad_to adds only invalid slots: the same loss and gradient."""
     labels = np.array([0, 1, -1, 2])
     e = np.zeros((0, 2), np.int64)
     w = np.ones(15, np.float32)
-    x = torch.tensor(np.random.RandomState(0).randn(4, 3), dtype=torch.float32)
-    lap = treg.build_region_laplacian_banded(e, labels, w)
-    ref = treg.build_region_laplacian(e, labels, w)
-    np.testing.assert_allclose(float(lap.loss(x)), float(ref.loss(x)),
-                               rtol=1e-6)
+    x = np.random.RandomState(0).randn(4, 3).astype(np.float32)
+    lap = treg.build_region_laplacian(e, labels, w)
+    (lt,), _ = _loss_and_grads(lap, [(x, None, None)])
+    (lb,), _ = _jax_loss_and_grads(
+        jreg.build_region_laplacian_banded(e, labels, w), [(x, None, None)])
+    np.testing.assert_allclose(lt, lb, rtol=1e-6)
     labels, e, x, w = _random_mesh(seed=4)
-    lap1 = treg.build_region_laplacian_banded(e, labels, w)
-    w1 = lap1.band.shape[1]
-    lap2 = treg.build_region_laplacian_banded(e, labels, w,
-                                              pad_width=w1 + 64)
-    assert lap2.band.shape[1] == w1 + 64
-    np.testing.assert_allclose(float(lap2.loss(torch.tensor(x))),
-                               float(lap1.loss(torch.tensor(x))),
-                               rtol=LOSS_RTOL)
+    lap1 = treg.build_region_laplacian(e, labels, w)
+    d1 = lap1.neighbors.shape[1]
+    lap2 = treg.build_region_laplacian(e, labels, w, pad_to=d1 + 64)
+    assert lap2.neighbors.shape[1] == d1 + 64
+    (l1,), (g1,) = _loss_and_grads(lap1, [(x, None, None)])
+    (l2,), (g2,) = _loss_and_grads(lap2, [(x, None, None)])
+    np.testing.assert_allclose(l2, l1, rtol=LOSS_RTOL)
+    _grad_close(g2, g1)
 
 
 # ---------------------------------------------------------------------------
