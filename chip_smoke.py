@@ -29,8 +29,9 @@ exp_bwd_variants} at their own sizes. Phases:
   1 device      torch.cuda must be available; prints the card and limit
   2 build       nvcc for sm_90a (composite_fwd.cu and composite_bwd.cu,
                 each one kernel for both layouts; composite_bwd_variants.cu,
-                chunk_scan_bench.cu, triplane_bwd.cu, knn_topk.cu and
-                bin_tiles.cu) and g++ (mesh_native), timed
+                chunk_scan_bench.cu, triplane_bwd.cu, knn_topk.cu,
+                bin_tiles.cu and preprocess.cu) and g++ (mesh_native),
+                timed
   3 setup       config from DEFAULTS + HUMAN_COMPLEX_DOTLIST, an
                 in-memory 4-frame kit, a seeded 32-frame custom motion,
                 a checkpoint written from the port's init_avatar,
@@ -47,7 +48,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 and on panel edge scenes (56x40 and 600 wide: padding
                 sub-tiles; the saturating stack)
   5 main        animate_chunk(16 frames a chunk, 32 frames); counts
-                composite_fwd launches from 0; then the same 32 frames
+                composite_fwd, bin_tiles and preprocess_fwd launches from
+                0 (one each a frame, no preprocess_bwd); then the same
+                32 frames
                 with tpu.raster.layout=panel, equal to the tiled ones
                 (uint8, exact), counting composite_fwd_panel launches;
                 neither animation writes the window-entry state
@@ -71,8 +74,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 frame, bit for bit against the tiled kernels, and the
                 rasterize gradients with layout="panel"
   9 train       2 calls of train_scan (16 steps from step 2000); counts
-                composite_fwd, composite_bwd and triplane_bwd launches from
-                0 (one each a step), the forward launches that wrote
+                composite_fwd, composite_bwd, triplane_bwd, bin_tiles,
+                preprocess_fwd and preprocess_bwd launches from 0 (one
+                each a step), the forward launches that wrote
                 the state (all of them) and knn_topk's (one a chunk, the
                 chunk head's statistic)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
@@ -242,6 +246,19 @@ exp_bwd_variants} at their own sizes. Phases:
                 step); CUDA-event and host-issue times of
                 the kernel path and of the plain version, and the byte
                 bound (each input read, each output written once)
+ 22 preprocess  the preprocess's kernels, ops/rasterizer/common.py's
+                csrc/preprocess.cu (preprocess on CUDA tensors), at phase
+                4's animation frame 0 and at phase 8's training frame:
+                the forward's seven fields against the plain forward
+                (preprocess_fwd_plain on the same CUDA inputs; radii and
+                mask equal, the float fields within PRE_MAX_ULPS float32
+                steps), the backward against the plain backward at
+                seeded cotangents on the visible slots, two calls of each
+                bit for bit; no host wait inside a call (profiler and
+                sync debug mode); the launches counted in phases 5 and
+                9; CUDA-event times of both kernels, of the plain forward
+                and backward and of autograd through the plain forward,
+                host-issue times, and the byte bounds
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -369,8 +386,24 @@ ENTRY_DOTLIST = ["tpu.raster.layout=panel", f"train.num_steps={ENTRY_STEPS}",
                  "train.val_interval=2000", "train.save_ckpt_interval=2010"]
 ENTRY_EVENTS = [1998, 2000, 2006, 2010]
 
-H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (SXM data sheet)
-H100_BYTES_PER_S = 3.35e12
+
+
+def peaks():
+    """benchmark/counts/peaks.py, the card's published peaks (loaded at
+    first use)."""
+    if "peaks" not in _LOADED:
+        import importlib.util
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmark", "counts", "peaks.py")
+        spec = importlib.util.spec_from_file_location("bench_peaks", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _LOADED["peaks"] = mod
+    return _LOADED["peaks"]
+
+
+_LOADED = {}
 # fp32 operations every walked pair-pixel needs before its skip test:
 # tile-local offsets (4), the conic quadratic (9), exp, opacity product,
 # 0.99 clamp (3): the alpha of that pair at that pixel
@@ -398,9 +431,10 @@ KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
                "composite_bwd_panel": 0.0}
 # the CUDA sources: the composite kernels (each one kernel for both
 # layouts), the experiment kernels, the triplane's grid backward, the
-# exact KNN statistic and the tile binning
+# exact KNN statistic, the tile binning and the preprocess
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
-           "chunk_scan_bench", "triplane_bwd", "knn_topk", "bin_tiles"]
+           "chunk_scan_bench", "triplane_bwd", "knn_topk", "bin_tiles",
+           "preprocess"]
 
 
 def log(msg: str) -> None:
@@ -749,6 +783,7 @@ def main(argv=None) -> int:
 def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.ops.rasterizer import common as PC
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer import tiles as T
     from sings_tpu_torch.ops.rasterizer.api import tiles_to_image, RasterConfig
@@ -849,6 +884,9 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         # ---- 21 the binning's kernels at this frame
         bin_anim = check_binning("animation frame 0",
                                  *binning_inputs(frame0, ds.camera, kw), smi)
+        # ---- 22 the preprocess's kernels at this frame
+        pre_anim = check_preprocess("animation frame 0", frame0, ds.camera,
+                                    kw["tile"], smi)
 
         # the whole frame through the plain version, for phase 5
         color, t_final = tiles_to_image(want, RasterConfig(
@@ -865,10 +903,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
 
     K.reset_launches()
     T.reset_launches()
+    PC.reset_launches()
     torch.cuda.synchronize()
     fps = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                 save_video=False, writer=writer)
-    launches = dict(K.LAUNCHES, **T.LAUNCHES)
+    launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES)
     log(f"[main] {len(frames)} frames at {fps:.2f} fps (host clock, "
         f"readback included), launches {launches}")
     if sorted(frames) != list(range(32)):
@@ -885,11 +924,15 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         f"{max(steps):.3f}, frame 0 vs 16: {swing:.3f}")
     if not (min(steps) > 0 and swing > 0.5):
         raise AssertionError("frames do not follow the motion")
-    for name in ("composite_fwd", "bin_tiles"):
+    for name in ("composite_fwd", "bin_tiles", "preprocess_fwd"):
         if launches[name] != 32:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  "in 32 frames, not 32")
+    if launches["preprocess_bwd"] != 0:
+        raise AssertionError("the animation launched the preprocess's "
+                             "backward")
     BIN_STATS["launches_anim"] = launches["bin_tiles"]
+    PRE_STATS["launches_anim"] = launches["preprocess_fwd"]
     if any(K.STATE_WRITES.values()):
         raise AssertionError(f"the animation wrote the window-entry state: "
                              f"{K.STATE_WRITES}")
@@ -906,10 +949,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     trainer.raster_kw["layout"] = "panel"
     K.reset_launches()
     T.reset_launches()
+    PC.reset_launches()
     torch.cuda.synchronize()
     fps_p = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                   save_video=False, writer=writer)
-    panel_launches = dict(K.LAUNCHES, **T.LAUNCHES)
+    panel_launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES)
     trainer.raster_kw["layout"] = "tiled"
     same = [np.array_equal(frames[i], tiled_frames[i]) for i in range(32)]
     log(f"[main panel] {len(frames)} frames at {fps_p:.2f} fps, launches "
@@ -920,6 +964,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     if (panel_launches["composite_fwd_panel"] != 32
             or panel_launches["composite_fwd"] != 0
             or panel_launches["bin_tiles"] != 32
+            or panel_launches["preprocess_fwd"] != 32
             or any(K.STATE_WRITES.values())):
         raise AssertionError(f"panel animation launches {panel_launches}, "
                              "expected 32 composite_fwd_panel and 0 tiled")
@@ -936,8 +981,8 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     ops = OPS_PER_PAIR_PIXEL * walked * npx
     # walked feats rows, both offset tables, the output
     nbytes = 4 * (9 * walked + 2 * (n_tiles + 1) + n_tiles * 8 * npx)
-    ops_ms = ops / H100_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / peaks().H100_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     log(f"[timing] composite_fwd without / with / with / without keeping "
         f"the state: {', '.join(f'{t:.4f}' for t in turns)} ms, plain "
@@ -960,6 +1005,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     torch.cuda.empty_cache()
     kernels.extend(run_train(work, dev, smi, profile_dir))
     kernels.append(binning_row(bin_anim))
+    kernels.append(preprocess_row(pre_anim))
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
     kernels.extend(run_scan(dev, smi))
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
@@ -1405,6 +1451,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     from sings_tpu_torch.losses.photometric import draw_step_randoms
     from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops import knn as KN
+    from sings_tpu_torch.ops.rasterizer import common as PC
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer import tiles as T
     from sings_tpu_torch.train.trainer import Trainer
@@ -1463,6 +1510,11 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
                 [x.detach() for x in leaves[:5]]
                 + [trainer.buffers.alive > 0.5], trainer.camera,
                 trainer.raster_kw), smi)
+    # ---- 22 the preprocess's kernels at the training frame
+    PRE_STATS["train"] = check_preprocess(
+        "training frame 0", [x.detach() for x in leaves[:5]]
+        + [trainer.buffers.alive > 0.5], trainer.camera,
+        trainer.raster_kw["tile"], smi)
     ekw = dict(tile=16, chunk=128, max_span=8, max_pairs=None, main_width=4,
                tail_capacity=None, pair_cap=None)
     g, cam = random_scene(400, 380, 500, 1, dev)
@@ -1510,6 +1562,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     GG.reset_launches()
     KN.reset_launches()
     T.reset_launches()
+    PC.reset_launches()
     torch.cuda.synchronize()
     times, all_losses, all_skipped = [], [], []
     for c in range(2):
@@ -1525,8 +1578,10 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
     launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"],
-                    **T.LAUNCHES)
+                    **T.LAUNCHES, **PC.LAUNCHES)
     BIN_STATS["launches_train"] = launches["bin_tiles"]
+    PRE_STATS["launches_train"] = (launches["preprocess_fwd"],
+                                   launches["preprocess_bwd"])
     knn_launches = KN.LAUNCHES["knn_topk"]
     if knn_launches != 2:
         raise AssertionError(f"the chunk head's statistic launched "
@@ -1564,9 +1619,10 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     if accum <= 0.0:
         raise AssertionError("xyz_grad_accum is zero on every visible slot")
     # one composite forward and backward a step, one triplane_bwd (the
-    # triplane's backward) and one binning (the forward's rasterize)
+    # triplane's backward), one binning and one preprocess forward (the
+    # forward's rasterize) and one preprocess backward
     for name in ("composite_fwd", "composite_bwd", "triplane_bwd",
-                 "bin_tiles"):
+                 "bin_tiles", "preprocess_fwd", "preprocess_bwd"):
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
@@ -1586,8 +1642,8 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     # output and of the cotangents, the 9-row gradient buffer written
     nbytes = 4 * (9 * walked + 2 * (n_tiles + 1) + 2 * n_tiles * 4 * npx
                   + 9 * binning.pair_slot_capacity)
-    ops_ms = ops / H100_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / peaks().H100_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     log(f"[timing] composite_bwd {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"walked pairs {walked} of {n_pairs}, compositing pair-pixels "
@@ -1871,7 +1927,7 @@ def triplane_backward(triplane: dict, xyz, tcfg, gfeat, launches: int,
     # plane gradients and dq written once
     nbytes = 4 * (gout.numel() + 2 * q.numel()
                   + 2 * sum(g.numel() for g in grids))
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
     passes = pass_times(args, profile_dir, smi) if profile_dir else None
     mib = 1 << 20
     log(f"[timing] triplane_bwd {ms:.4f} ms ({GG.KERNEL_LAUNCHES} "
@@ -2118,8 +2174,8 @@ def run_knn(trainer, launches: int, smi: str) -> dict:
     rows_ms = device_time(lambda _x: KN.knn_rows(
         xyz, 9, row_start=0, rows=share, valid=valid), (xyz,)) * 1e3
     lib_ms = cuda_ms(lambda: knn_torch(xyz, 9, valid), n=2, warm=1)
-    bound_ms = KNN_OPS_PER_PAIR * n_live ** 2 / H100_FP32_FLOPS * 1e3
-    walk_ms = KNN_OPS_PER_PAIR * n * n_live / H100_FP32_FLOPS * 1e3
+    bound_ms = KNN_OPS_PER_PAIR * n_live ** 2 / peaks().H100_FP32_FLOPS * 1e3
+    walk_ms = KNN_OPS_PER_PAIR * n * n_live / peaks().H100_FP32_FLOPS * 1e3
     log(f"[timing] knn_topk (k 9, {n_live} live in {n} slots, with its "
         f"glue) {ms:.4f} ms, edge_stat {stat_ms:.4f} ms, knn_rows of a "
         f"quarter {rows_ms:.4f} ms; the torch path (matmul + torch.topk) "
@@ -2254,7 +2310,7 @@ def check_binning(name: str, g2d, bkw: dict, smi: str) -> dict:
     host_ms = issue_ms(lambda: T.bin_gaussians(g2d, **bkw), 50)
     plain_host_ms = issue_ms(lambda: T.bin_gaussians_plain(g2d, **bkw), 10)
     nbytes = bin_bytes(g2d, got)
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
     out = {"pairs": int(got.num_pairs), "overflow": int(got.overflow),
            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
            "plain_host_ms": plain_host_ms, "bound_ms": bound_ms,
@@ -2286,6 +2342,190 @@ def binning_row(anim: dict) -> dict:
         "bound_ms": anim["bound_ms"], "bound_by": "bytes",
         "train_frame_ms": train["ms"], "train_frame_plain_ms":
         train["plain_ms"], "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the preprocess's kernels (phase 22, at phase 4's and phase 8's frames)
+
+PRE_REPLACES = ("none: sings_tpu/ops/rasterizer/common.py::preprocess "
+                "(XLA code, no pallas_call)")
+# the float fields' largest gap to the plain forward, in float32 steps
+# (the H100 gives 0: the kernel sums in torch's order)
+PRE_MAX_ULPS = 4
+# phase 22's checks at the training frame and the preprocess's launches
+# in phases 5 and 9
+PRE_STATS = {}
+
+
+def ulp_gap(a, b) -> int:
+    """The largest distance between two float32 tensors in float32
+    steps; NaN against NaN is 0."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (key(a) - key(b)).abs()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+    return int(d.max()) if d.numel() else 0
+
+
+def preprocess_bytes(n: int, k: int, deg: int, alive: bool) -> tuple:
+    """The preprocess's least traffic, forward and backward: each input
+    read once (means, scales, quats, the used SH coefficients, alive, the
+    camera), each output written once (the forward's seven fields; the
+    backward's four gradients, every coefficient's)."""
+    nb = (deg + 1) ** 2
+    inputs = n * (12 + 12 + 16 + 12 * nb) + 35 * 4
+    fwd = inputs + n * (int(alive) + 8 + 4 + 12 + 12 + 4 + 1)
+    bwd = inputs + n * (8 + 4 + 12 + 12) + n * (12 + 12 + 16 + 12 * k)
+    return fwd, bwd
+
+
+def check_preprocess(name: str, gauss, cam, tile: int, smi: str) -> dict:
+    """Phase 22 at one frame (gauss as composite_inputs takes it, SH
+    degree 3): the forward kernel's fields against preprocess_fwd_plain
+    on the same CUDA inputs (radii and mask equal, the float fields
+    within PRE_MAX_ULPS, two calls bit for bit), the backward kernel
+    against preprocess_bwd_plain at seeded cotangents on the masked slots
+    (two calls bit for bit); no host wait in a call; CUDA-event and
+    host-issue times of both kernels, of the plain forward and backward
+    and of autograd through the plain forward (the torch composition the
+    kernels replace), and the byte bounds."""
+    from sings_tpu_torch.ops.rasterizer import common as PC
+
+    m, s, q, _opac, sh, alive = [x.detach() for x in gauss[:5]] + [gauss[5]]
+    n = m.shape[0]
+    spec = PC.Projection(cam.to(m.device), 3, 1.0, tile)
+    args = (spec, m, s, q, sh, alive)
+    want = PC.preprocess_fwd_plain(*args)
+    got = PC.preprocess_fwd_cuda(*args)
+    again = PC.preprocess_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    ulps = {}
+    for f, a, b, c in zip(("means2d", "depths", "conics", "colors", "radii",
+                           "mask"), got, want, again):
+        if a.dtype in (torch.int32, torch.bool):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"preprocess {name}: {f} differs from "
+                                     f"the plain forward's at "
+                                     f"{int((a != b).sum())} gaussians")
+            continue
+        ulps[f] = ulp_gap(a, b)
+        if ulp_gap(a, c) or ulps[f] > PRE_MAX_ULPS:
+            raise AssertionError(f"preprocess {name}: {f} {ulps[f]} float32 "
+                                 "steps from the plain forward's")
+    gen = torch.Generator(device=m.device).manual_seed(SEED + 22)
+    live = want[5][:, None].to(torch.float32)
+    cots = [(torch.randn(n, 9, generator=gen, device=m.device) * live)[:, 2:4],
+            torch.randn(n, generator=gen, device=m.device) * live[:, 0],
+            torch.randn(n, 3, generator=gen, device=m.device) * live,
+            torch.randn(n, 3, generator=gen, device=m.device) * live]
+    g_want = PC.preprocess_bwd_plain(*args[:5], *cots)
+    g_got = PC.preprocess_bwd_cuda(*args[:5], *cots)
+    g_again = PC.preprocess_bwd_cuda(*args[:5], *cots)
+    torch.cuda.synchronize()
+    errs = {}
+    # an isotropic avatar's covariance ignores the rotation: d/dquats is
+    # zero up to rounding on both paths (check_grads)
+    isotropic = bool(((s[:, 0] == s[:, 1]) & (s[:, 1] == s[:, 2])).all())
+    for f, a, b, c in zip(("means3d", "scales", "quats", "sh"), g_got,
+                          g_want, g_again):
+        if not torch.equal(a, c) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"preprocess {name}: the backward's {f} "
+                                 "not finite or two calls apart")
+        if isotropic and f == "quats":
+            limit = ZERO_GRAD_REL * float(g_want[1].abs().max())
+            errs[f] = max(float(a.abs().max()), float(b.abs().max()))
+            if not errs[f] <= limit:
+                raise AssertionError(f"preprocess {name}: d/dquats of an "
+                                     f"isotropic avatar {errs[f]:.3e}, not "
+                                     f"zero up to rounding ({limit:.3e})")
+            continue
+        errs[f] = rel_err(a, b)
+        if not errs[f] < 1e-5:
+            raise AssertionError(f"preprocess {name}: the backward's {f} "
+                                 f"{errs[f]:.3e} from the plain backward's")
+    for what, fn in (("forward", lambda: PC.preprocess_fwd_cuda(*args)),
+                     ("backward", lambda: PC.preprocess_bwd_cuda(
+                         *args[:5], *cots))):
+        waits, launches = host_waits_in(fn)
+        if waits or not launches:
+            raise AssertionError(f"preprocess {name}: host waits {waits} in "
+                                 f"the {what} ({len(launches)} launches)")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    leaves = [x.clone().requires_grad_(True) for x in (m, s, q, sh)]
+
+    def autograd_plain():
+        with torch.enable_grad():
+            out = PC.preprocess_fwd_plain(spec, *leaves, alive)
+            torch.autograd.grad(out[:4], leaves, cots)
+
+    def issue_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e3
+
+    out = {
+        "ms": cuda_ms(lambda: PC.preprocess_fwd_cuda(*args), n=50, warm=5),
+        "bwd_ms": cuda_ms(lambda: PC.preprocess_bwd_cuda(*args[:5], *cots),
+                          n=50, warm=5),
+        "plain_ms": cuda_ms(lambda: PC.preprocess_fwd_plain(*args), n=10,
+                            warm=2),
+        "plain_bwd_ms": cuda_ms(lambda: PC.preprocess_bwd_plain(
+            *args[:5], *cots), n=10, warm=2),
+        "autograd_ms": cuda_ms(autograd_plain, n=10, warm=2),
+        "host_ms": issue_ms(lambda: PC.preprocess_fwd_cuda(*args), 50),
+        "plain_host_ms": issue_ms(lambda: PC.preprocess_fwd_plain(*args),
+                                  10),
+        "ulps": ulps, "bwd_errs": errs}
+    fwd_bytes, bwd_bytes = preprocess_bytes(n, sh.shape[1], 3,
+                                            alive is not None)
+    out["bound_ms"] = peaks().bound_s(0.0, fwd_bytes)[0] * 1e3
+    out["bwd_bound_ms"] = peaks().bound_s(0.0, bwd_bytes)[0] * 1e3
+    iso = (" (quats: the largest value, zero up to rounding: an isotropic "
+           "avatar)" if isotropic else "")
+    log(f"[preprocess] {name}: {n} gaussians, {int(want[5].sum())} visible: "
+        f"radii and mask the plain forward's, float fields within {ulps} "
+        f"float32 steps, the backward within {errs} (relative) of the plain "
+        f"backward's{iso}; two calls bit for bit; no host wait in a call")
+    log(f"[timing] preprocess {name}: forward kernel {out['ms']:.4f} ms "
+        f"(host issue {out['host_ms']:.4f} ms), backward kernel "
+        f"{out['bwd_ms']:.4f} ms; plain forward {out['plain_ms']:.4f} ms "
+        f"(host {out['plain_host_ms']:.4f} ms), plain backward "
+        f"{out['plain_bwd_ms']:.4f} ms, autograd of the plain forward "
+        f"(forward and backward) {out['autograd_ms']:.4f} ms; bounds "
+        f"{out['bound_ms']:.4f} / {out['bwd_bound_ms']:.4f} ms ({fwd_bytes} "
+        f"/ {bwd_bytes} bytes, {100 * out['bound_ms'] / out['ms']:.1f}% / "
+        f"{100 * out['bwd_bound_ms'] / out['bwd_ms']:.1f}% of it) | {smi}")
+    return out
+
+
+def preprocess_row(anim: dict) -> dict:
+    """The kernels-line row of phase 22: the animation frame's times, the
+    training frame's beside them, the launches of phases 5 and 9."""
+    train = PRE_STATS["train"]
+    return {
+        "name": "preprocess", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/preprocess.cu",
+        "replaces": PRE_REPLACES,
+        "launches": PRE_STATS["launches_anim"],
+        "launches_train": PRE_STATS["launches_train"],
+        "max_abs_err": None, "max_ulps": max(anim["ulps"].values()),
+        "ms": anim["ms"], "kernel_ms": anim["ms"], "host_ms": anim["host_ms"],
+        "plain_ms": anim["plain_ms"], "plain_host_ms": anim["plain_host_ms"],
+        "bound_ms": anim["bound_ms"], "bound_by": "bytes",
+        "train_frame_ms": train["ms"], "train_frame_bwd_ms": train["bwd_ms"],
+        "train_frame_plain_bwd_ms": train["plain_bwd_ms"],
+        "train_frame_autograd_ms": train["autograd_ms"],
+        "bwd_bound_ms": train["bwd_bound_ms"], "library_ms": None,
     }
 
 
@@ -2634,8 +2874,8 @@ def panel_timing(tr, launches: dict, split: dict, smi: str) -> list:
                   + 9 * cap))):
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, n=5, warm=1)
-        ops_ms = ops / H100_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / peaks().H100_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         log(f"[timing] {name} {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms (ops {ops_ms:.4f} ms, bytes "
@@ -2875,21 +3115,24 @@ def perturbed(tree):
 
 def launch_counts() -> dict:
     from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops.rasterizer import common as PC
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer import tiles as T
 
     return dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"],
-                **T.LAUNCHES)
+                **T.LAUNCHES, **PC.LAUNCHES)
 
 
 def reset_all_launches() -> None:
     from sings_tpu_torch.ops import grid_grad as GG
+    from sings_tpu_torch.ops.rasterizer import common as PC
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer import tiles as T
 
     K.reset_launches()
     GG.reset_launches()
     T.reset_launches()
+    PC.reset_launches()
 
 
 @torch.no_grad()
@@ -4386,10 +4629,11 @@ def run_scan(dev, smi: str) -> list:
         ms = res["modes"][mode]["ms"]
         ms_one = one["modes"][mode]["ms"]
         ops = SCAN_FN_OPS * SB.CHUNK * SB.NPX * steps
-        ops_ms = ops / H100_FP32_FLOPS * 1e3
-        bytes_ms = 4 * (SB.CHUNK * SB.NPX + SB.NPX) / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / peaks().H100_FP32_FLOPS * 1e3
+        bytes_ms = (4 * (SB.CHUNK * SB.NPX + SB.NPX)
+                    / peaks().H100_BYTES_PER_S * 1e3)
         bound_ms = max(ops_ms, bytes_ms)
-        one_sm_ms = ops / (H100_FP32_FLOPS / H100_SMS) * 1e3
+        one_sm_ms = ops / (peaks().H100_FP32_FLOPS / H100_SMS) * 1e3
         log(f"[scan] {mode}: {ms:.4f} ms for {steps} steps on {sms} CTAs "
             f"({1e3 * ms / steps:.6f} us a step), on one CTA {ms_one:.4f} "
             f"ms ({1e3 * ms_one / steps:.4f} us a step), plain "
@@ -4458,8 +4702,8 @@ def run_experiments(dev, smi: str) -> list:
                + OPS_PER_COMPOSITE_BWD * composited)
         nbytes = 4 * (9 * walked + 2 * (n_tiles + 1)
                       + 2 * n_tiles * 4 * npx + 9 * kw["grad_cap"])
-        ops_ms = ops / H100_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / peaks().H100_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / peaks().H100_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         log(f"[experiments] bench scene (gout {gout}): pairs "
             f"{int(sc.binning.num_pairs)}, walked {walked}, compositing "
@@ -4833,13 +5077,14 @@ def run_calibrate(work: str, dev, smi: str, rows: list,
                         warm=1)
     n_tiles = ckw["n_tiles_x"] * ckw["n_tiles_y"]
     npx = ckw["tile"] ** 2
-    f_ops = OPS_PER_PAIR_PIXEL * walked * npx / H100_FP32_FLOPS * 1e3
+    f_ops = OPS_PER_PAIR_PIXEL * walked * npx / peaks().H100_FP32_FLOPS * 1e3
     f_bytes = 4 * (9 * walked + 2 * (n_tiles + 1) + n_tiles * 8 * npx) \
-        / H100_BYTES_PER_S * 1e3
+        / peaks().H100_BYTES_PER_S * 1e3
     b_ops = (OPS_PER_PAIR_PIXEL_BWD * walked_b * npx
-             + OPS_PER_COMPOSITE_BWD * composited) / H100_FP32_FLOPS * 1e3
+             + OPS_PER_COMPOSITE_BWD * composited) \
+        / peaks().H100_FP32_FLOPS * 1e3
     b_bytes = 4 * (9 * walked_b + 2 * (n_tiles + 1) + 2 * n_tiles * 4 * npx
-                   + 9 * bkw["grad_cap"]) / H100_BYTES_PER_S * 1e3
+                   + 9 * bkw["grad_cap"]) / peaks().H100_BYTES_PER_S * 1e3
     log(f"[calibrate] silhouette frame 0: pairs {int(binning.num_pairs)}, "
         f"overflow {int(binning.overflow)}, walked {walked} (backward "
         f"{walked_b}), compositing pair-pixels {composited}, "

@@ -1,9 +1,10 @@
 """Differentiable rasterizer API (port of sings_tpu/ops/rasterizer/api.py).
 
 rasterize() = preprocess (autograd) -> bin_gaussians -> _gather_feats ->
-composite kernel -> crop -> background blend (the binning and the
-composite are CUDA kernels on the card, plain versions on the CPU), each
-stage in an ops/profiling.py span (raster.*).
+composite kernel -> crop -> background blend (the preprocess and its
+backward, the binning and the composite are CUDA kernels on the card,
+plain versions on the CPU), each stage in an ops/profiling.py span
+(raster.*).
 The composite is an autograd.Function whose backward is the matching
 backward kernel: it writes per-pair gradients into the aligned buffer,
 and the 9 used rows are un-sorted back to gaussians with the main_slot
