@@ -17,7 +17,8 @@ turn, and the region laplacians are each rank's row range
 
 As in the JAX package's case step (dist/train_sharded.py::
 make_frame_loss), the KNN edge statistic is the exact one whatever the
-case's tpu.knn_backend says.
+case's tpu.knn_backend says. The restacking of the cases' outputs after
+every step runs in the ops/profiling.py span pool.stack.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from ..model.avatar import AvatarConfig
 from ..ops.graphics import Camera
+from ..ops.profiling import span
 from ..train.step import StepConfig, make_train_step
 from ..tree import tree_map
 from .collectives import world_size
@@ -46,18 +48,16 @@ def camera_arrays(camera: Camera) -> dict:
     """The camera's array fields (height and width stay host ints).
 
     view, proj and cam_center are float32 as in the JAX package; the
-    two tangents are float64 0-d tensors, so that a case's rebuilt
-    camera carries the same Python floats as the original one and its
-    step equals the single-card step bit for bit."""
-    dev = camera.view.device
+    two tangents are float64 0-d tensors on the host, so that a case's
+    rebuilt camera carries the same Python floats as the original one
+    (its step equals the single-card step bit for bit) and reading them
+    never waits for the card (shard_cameras keeps them there)."""
     return {
         "view": camera.view.to(torch.float32),
         "proj": camera.proj.to(torch.float32),
         "cam_center": camera.cam_center.to(torch.float32),
-        "tan_fovx": torch.tensor(camera.tan_fovx, dtype=torch.float64,
-                                 device=dev),
-        "tan_fovy": torch.tensor(camera.tan_fovy, dtype=torch.float64,
-                                 device=dev),
+        "tan_fovx": torch.tensor(camera.tan_fovx, dtype=torch.float64),
+        "tan_fovy": torch.tensor(camera.tan_fovy, dtype=torch.float64),
     }
 
 
@@ -78,6 +78,14 @@ def shard_cases(tree, device):
     """The stacked tree on the one device (the JAX package places the
     case axis over the mesh's "case" axis)."""
     return tree_map(lambda x: x.to(device), tree)
+
+
+def shard_cameras(cam_arrays: dict, device) -> dict:
+    """Stacked camera_arrays for the case step: the matrices on the one
+    device, the tangents left on the host, where each case step reads
+    them (_case_camera) without waiting for the card."""
+    return {k: v if k in ("tan_fovx", "tan_fovy") else v.to(device)
+            for k, v in cam_arrays.items()}
 
 
 def make_case_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
@@ -127,11 +135,16 @@ def make_case_train_step(avatar_cfg: AvatarConfig, step_cfg: StepConfig,
                 draws=None if draws is None else draws[c],
                 camera=_case_camera(cam_arrays, c, height, width))
             outs.append((p, b, o, m))
-        params, buffers, opt_states, metrics = (
-            stack_cases([o[i] for o in outs]) for i in range(4))
-        return params, buffers, opt_states, metrics
+        return _restack(outs)
 
     return step
+
+
+def _restack(outs: list) -> tuple:
+    """The cases' (params, buffers, opt_state, metrics) stacked again on
+    the case axis, in the pool.stack span."""
+    with span("pool.stack"):
+        return tuple(stack_cases([o[i] for o in outs]) for i in range(4))
 
 
 def _case_camera(cam_arrays, c: int, height: int, width: int) -> Camera:
@@ -168,6 +181,6 @@ def _sharded_case_step(avatar_cfg, step_cfg, template, height, width, tx,
                 lap_pos_w, lap_color_w,
                 draws=None if draws is None else draws[c],
                 camera=_case_camera(cam_arrays, c, height, width)))
-        return tuple(stack_cases([o[i] for o in outs]) for i in range(4))
+        return _restack(outs)
 
     return step

@@ -82,8 +82,9 @@ def edge_stat(xyz_canon: torch.Tensor, alive: torch.Tensor, k: int = 9,
             return knn_window_stat(xyz_canon, k, valid=alive > 0)
     if backend != "dense":
         raise ValueError(f"edge_stat backend {backend!r}")
-    dists, _ = knn(xyz_canon.contiguous(), k, valid=alive > 0)
-    return torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(dim=1)
+    with span("losses.knn_exact"):
+        dists, _ = knn(xyz_canon.contiguous(), k, valid=alive > 0)
+        return torch.sqrt(torch.clamp_min(dists[:, 1:], 1e-24)).mean(dim=1)
 
 
 def gaussians_edge_loss_from_stat(stat: torch.Tensor, scales: torch.Tensor,

@@ -29,6 +29,11 @@ ranges):
   losses.knn_window     losses/regularizers.py::edge_stat, inside
                         step.losses: the windowed statistic
                         (tpu.knn_backend=window)
+  losses.knn_exact      edge_stat: the exact statistic (knn and the
+                        mean edge length), inside step.losses where a
+                        step computes it (tpu.knn_backend=dense, the
+                        case pool) and inside step.knn_stat at a
+                        chunk's head
   losses.laplacian      train/step.py::regularizer_terms, inside
                         step.losses: the fused region laplacian terms
   step.backward         torch.autograd.grad and the zero fill
@@ -46,6 +51,9 @@ ranges):
   anim.pose             train/trainer.py::render_chunk: pose_chunk
   anim.frame            render_chunk, once a frame: rasterize, quantize
   anim.readback         animate_chunk: a chunk's copy to the host
+  pool.stack            dist/train_cases.py: the restacking of every
+                        case's outputs on the case axis after each
+                        lockstep step (both gs paths)
 """
 from __future__ import annotations
 

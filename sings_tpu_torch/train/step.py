@@ -31,9 +31,11 @@ Each stage runs in an ops/profiling.py span that a profiler records:
 step.knn_stat at the chunk head, then step.draws (where the step draws
 its own randoms), step.decode, step.rasterize, step.losses,
 step.backward and step.update in every step. Inside step.losses,
-losses.laplacian holds the fused laplacian terms, and the options hold
-their own: losses.lpips (the LPIPS term) and losses.knn_window (the
-windowed statistic).
+losses.laplacian holds the fused laplacian terms, and the statistic
+and the options hold their own: losses.knn_exact (the exact statistic,
+where a step computes it; at a chunk's head it nests in
+step.knn_stat), losses.lpips (the LPIPS term) and losses.knn_window
+(the windowed statistic).
 """
 from __future__ import annotations
 

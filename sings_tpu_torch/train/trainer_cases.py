@@ -6,11 +6,14 @@ C independent avatar cases train in lockstep: one call of the case step
 (frame sampling, periodic checkpoint / validation / visualisation,
 density control, laplacian rebuilds) runs per case between calls with
 the single-case Trainer's semantics: the pool owns one Trainer per case
-and unstacks the stacked state into them only at event steps. The JAX
-package runs the cases over a (case, gs) device mesh; the port runs
-them one after another, on one card (gs = 1) or, at gs > 1, on each of
-the gs ranks of a torch.distributed process group, which splits every
-case's step into image strips and gaussian shards (make_case_mesh).
+and unstacks the stacked state into them only at event steps. train()
+runs train_scan chunks of up to tpu.inner_steps lockstep steps between
+events (Trainer.train's rule) and reads the skipped flags back once a
+chunk. The JAX package runs the cases over a (case, gs) device mesh;
+the port runs them one after another, on one card (gs = 1) or, at
+gs > 1, on each of the gs ranks of a torch.distributed process group,
+which splits every case's step into image strips and gaussian shards
+(make_case_mesh).
 Rank 0 alone writes; every event ends with each case's state from rank
 0 on every rank.
 
@@ -42,7 +45,7 @@ import torch
 from ..dist.collectives import broadcast_object, world_rank
 from ..dist.train_cases import (
     camera_arrays, make_case_mesh, make_case_train_step, pick_case,
-    shard_cases, stack_cases,
+    shard_cameras, shard_cases, stack_cases,
 )
 from ..losses.regularizers import shard_region_laplacian
 
@@ -140,7 +143,7 @@ class CasePool:
         self.step = min(t.step for t in self.trainers)
 
         # static per-case inputs
-        self._cams = shard_cases(stack_cases(
+        self._cams = shard_cameras(stack_cases(
             [camera_arrays(t.camera) for t in self.trainers]), self.device)
         self._caches = shard_cases(stack_cases(
             [t.cache for t in self.trainers]), self.device)
@@ -220,65 +223,113 @@ class CasePool:
         return int(frame)
 
     # ------------------------------------------------------------------
-    def train(self):
+    def train_scan(self, k: int, frames=None, draws=None):
+        """k lockstep steps from self.step with no host event and no read
+        of their results in between; advances self.step by k. Each
+        case's frames come from its stream (_next_frame) unless given:
+        frames[c] is case c's k frame indices. draws: None to draw from
+        each case's generator, else draws[c] is case c's list of k draw
+        dicts (draw_step_randoms' layout). Returns each case's losses
+        and skipped flags as (C, k) tensors, on the device."""
         ts = self.trainers
+        n = len(ts)
+        if frames is None:
+            frames = [[self._next_frame(c) for _ in range(k)]
+                      for c in range(n)]
+        if len(frames) != n or any(len(f) != k for f in frames):
+            raise ValueError(f"frames: {n} cases of {k} steps each")
+        if draws is not None and (len(draws) != n
+                                  or any(len(d) != k for d in draws)):
+            raise ValueError(f"draws: {n} cases of {k} steps each")
         t0 = ts[0]
-        num_steps = int(t0.cfg.train.num_steps)
-        names = [t.kit.name for t in ts]
-        io = world_rank() == 0
-        if io:
-            print(f"[pool] {len(ts)} cases {names} (case={len(ts)}, "
-                  f"gs={self.gs}), one case step after another")
-        log_every, steps_since_log, tlog = 50, 0, time.time()
-
-        while self.step < num_steps:
-            t_iter = self.step
-            frames = [self._next_frame(c) for c in range(len(ts))]
+        ones = torch.ones((n, 1), device=self.device)
+        losses, skipped = [], []
+        for i in range(k):
+            step_frames = [int(f[i]) for f in frames]
             batch = {
-                "rgb": torch.stack([t.images[f] for t, f in zip(ts, frames)]),
+                "rgb": torch.stack([t.images[f]
+                                    for t, f in zip(ts, step_frames)]),
                 "mask": torch.stack([t.masks[f]
-                                     for t, f in zip(ts, frames)]),
-                "idx": frames,
-                "smpl_scale": torch.ones((len(ts), 1), device=self.device),
+                                     for t, f in zip(ts, step_frames)]),
+                "idx": step_frames,
+                "smpl_scale": ones,
             }
             (self._params, self._buffers, self._opt,
              metrics) = self.step_fn(
                 self._params, self._buffers, self._opt, self._caches,
-                self._cams, batch, self.generators, t_iter,
+                self._cams, batch, self.generators, self.step,
                 self.active_sh_degree, self._rlap, self._rlap,
-                t0.lap_pos_w, t0.lap_color_w)
+                t0.lap_pos_w, t0.lap_color_w,
+                draws=None if draws is None else [d[i] for d in draws])
+            losses.append(metrics["loss"])
+            skipped.append(metrics["skipped"])
+            self.step += 1
+        return torch.stack(losses, dim=1), torch.stack(skipped, dim=1)
 
-            skipped = metrics["skipped"].cpu().numpy()
+    def _is_event(self, t: int) -> bool:
+        """Any case's host event after step t (Trainer._is_event)."""
+        return any(t_._is_event(t) for t_ in self.trainers)
+
+    def train(self):
+        """The lockstep loop: train_scan chunks of up to tpu.inner_steps
+        steps between host events (Trainer.train's rule: a chunk ends
+        before an event step, which runs alone), one read of the skipped
+        flags a chunk, then each case's final checkpoint and
+        validation."""
+        ts = self.trainers
+        t0 = ts[0]
+        num_steps = int(t0.cfg.train.num_steps)
+        inner = t0.inner_steps
+        names = [t.kit.name for t in ts]
+        io = world_rank() == 0
+        if io:
+            print(f"[pool] {len(ts)} cases {names} (case={len(ts)}, "
+                  f"gs={self.gs}), one case step after another, chunks of "
+                  f"up to {inner} lockstep steps")
+        log_every, steps_since_log, tlog = 50, 0, time.time()
+
+        while self.step < num_steps:
+            t_iter = self.step
+            k = 1
+            if inner > 1 and not self._is_event(t_iter):
+                while (k < inner and t_iter + k < num_steps
+                       and not self._is_event(t_iter + k)):
+                    k += 1
+            losses, skipped = self.train_scan(k)
+
+            skipped = skipped.cpu().numpy()
             if skipped.any() and io:
-                bad = [n for n, s in zip(names, skipped) if s > 0]
-                print(f"[{t_iter}] WARNING: non-finite gradients, update "
-                      f"skipped for {bad}")
+                for i in range(k):
+                    bad = [n for n, s in zip(names, skipped[:, i]) if s > 0]
+                    if bad:
+                        print(f"[{t_iter + i}] WARNING: non-finite "
+                              f"gradients, update skipped for {bad}")
 
-            steps_since_log += 1
+            steps_since_log += k
             if steps_since_log >= log_every and io:
-                losses = metrics["loss"].cpu().numpy().round(4).tolist()
+                last = losses[:, -1].cpu().numpy().round(4).tolist()
                 n_gs = self._buffers.alive.sum(dim=1).cpu().numpy().astype(
                     int).tolist()
                 dt = time.time() - tlog
-                print(f"[{t_iter:6d}] losses={losses} n_gs={n_gs} "
+                print(f"[{self.step - 1:6d}] losses={last} n_gs={n_gs} "
                       f"({steps_since_log / max(dt, 1e-9):.2f} it/s)",
                       flush=True)
                 tlog, steps_since_log = time.time(), 0
 
-            if any(t._is_event(t_iter) for t in ts):
-                self._unstack_state(t_iter)
+            last_t = self.step - 1
+            if self._is_event(last_t):
+                self._unstack_state(last_t)
                 for t in ts:
-                    t._periodic_check(t_iter, None)
-                    t._adjust_density(t_iter)
+                    t._periodic_check(last_t, None)
+                    t._adjust_density(last_t)
                 # one SH schedule for the pool (the rule of
                 # Trainer._periodic_check)
-                if (t_iter % 1000 == 0 and t_iter > 0
+                if (last_t % 1000 == 0 and last_t > 0
                         and self.active_sh_degree < t0.cfg.human.sh_degree):
                     self.active_sh_degree += 1
                 self._sync_from_rank0()
                 self._unify_laps()
                 self._stack_state()
-            self.step += 1
 
         self._unstack_state(num_steps)
         results = {}
