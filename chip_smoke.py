@@ -49,7 +49,9 @@ exp_bwd_variants} at their own sizes. Phases:
                 sub-tiles; the saturating stack)
   5 main        animate_chunk(16 frames a chunk, 32 frames); counts
                 composite_fwd, bin_tiles and preprocess_fwd launches from
-                0 (one each a frame, no preprocess_bwd); then the same
+                0 (one each a frame, no preprocess_bwd) and the posing's
+                pose_skeleton_fwd and pose_skin_fwd (one each a chunk, no
+                backward); then the same
                 32 frames
                 with tpu.raster.layout=panel, equal to the tiled ones
                 (uint8, exact), counting composite_fwd_panel launches;
@@ -76,7 +78,8 @@ exp_bwd_variants} at their own sizes. Phases:
   9 train       2 calls of train_scan (16 steps from step 2000); counts
                 composite_fwd, composite_bwd, triplane_bwd, bin_tiles,
                 preprocess_fwd and preprocess_bwd launches from 0 (one
-                each a step), the forward launches that wrote
+                each a step) and the posing's four kernels (one each a
+                step), the forward launches that wrote
                 the state (all of them) and knn_topk's (one a chunk, the
                 chunk head's statistic)
  10 timing      composite_bwd's CUDA-event time, its plain version's,
@@ -259,6 +262,19 @@ exp_bwd_variants} at their own sizes. Phases:
                 9; CUDA-event times of both kernels, of the plain forward
                 and backward and of autograd through the plain forward,
                 host-issue times, and the byte bounds
+ 23 pose      the posing's kernels, kinematics/pose.py's csrc/pose.cu
+                (pose_gaussians on CUDA tensors), at phase 4's first
+                16-frame chunk (axis-angle, smpl_scale, ext_tfs; forward)
+                and at phase 8's training frame (the learned 6D rows,
+                forward and backward): xyz, rotq (up to its sign) and
+                scales within 1e-5 of the plain version's
+                (skeleton_plain + skin_plain on the same CUDA inputs),
+                every gradient within 1e-4 of autograd's through the
+                plain version, two calls bit for bit; no host wait inside
+                a call (profiler and sync debug mode); the launches
+                counted in phases 5 and 9; CUDA-event times of the
+                kernels, of the plain version and of its autograd,
+                host-issue times, and the byte bounds
 With --profile, stage tables and torch.profiler kernel tables of an
 animation frame (after phase 6), of a training step (after phase 16) and
 of the calibration's two stages (in phase 15); each profiled stage that
@@ -434,7 +450,7 @@ KERNEL_ERRS = {"composite_fwd": 0.0, "composite_fwd_panel": 0.0,
 # exact KNN statistic, the tile binning and the preprocess
 SOURCES = ["composite_fwd", "composite_bwd", "composite_bwd_variants",
            "chunk_scan_bench", "triplane_bwd", "knn_topk", "bin_tiles",
-           "preprocess"]
+           "preprocess", "pose"]
 
 
 def log(msg: str) -> None:
@@ -783,6 +799,7 @@ def main(argv=None) -> int:
 def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.kinematics import pose as POSE
     from sings_tpu_torch.ops.rasterizer import common as PC
     from sings_tpu_torch.ops.rasterizer import kernels as K
     from sings_tpu_torch.ops.rasterizer import tiles as T
@@ -887,6 +904,10 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
         # ---- 22 the preprocess's kernels at this frame
         pre_anim = check_preprocess("animation frame 0", frame0, ds.camera,
                                     kw["tile"], smi)
+        # ---- 23 the posing's kernels at the first chunk
+        pose_anim = check_pose("animation chunk 0", trainer, gs_attrs,
+                               chunk_frames(trainer, ds.get_chunk(0, 16)),
+                               False, smi)
 
         # the whole frame through the plain version, for phase 5
         color, t_final = tiles_to_image(want, RasterConfig(
@@ -904,10 +925,11 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     K.reset_launches()
     T.reset_launches()
     PC.reset_launches()
+    POSE.reset_launches()
     torch.cuda.synchronize()
     fps = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                 save_video=False, writer=writer)
-    launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES)
+    launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES, **POSE.LAUNCHES)
     log(f"[main] {len(frames)} frames at {fps:.2f} fps (host clock, "
         f"readback included), launches {launches}")
     if sorted(frames) != list(range(32)):
@@ -931,6 +953,12 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     if launches["preprocess_bwd"] != 0:
         raise AssertionError("the animation launched the preprocess's "
                              "backward")
+    pose_counts = {k: launches[k] for k in POSE.LAUNCHES}
+    if pose_counts != {"pose_skeleton_fwd": 2, "pose_skin_fwd": 2,
+                       "pose_skeleton_bwd": 0, "pose_skin_bwd": 0}:
+        raise AssertionError(f"the animation's posing launched {pose_counts}"
+                             " in 2 chunks, not one forward each a chunk")
+    POSE_STATS["launches_anim"] = pose_counts["pose_skin_fwd"]
     BIN_STATS["launches_anim"] = launches["bin_tiles"]
     PRE_STATS["launches_anim"] = launches["preprocess_fwd"]
     if any(K.STATE_WRITES.values()):
@@ -950,10 +978,12 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     K.reset_launches()
     T.reset_launches()
     PC.reset_launches()
+    POSE.reset_launches()
     torch.cuda.synchronize()
     fps_p = trainer.animate_chunk(chunk_size=16, max_frames=32,
                                   save_video=False, writer=writer)
-    panel_launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES)
+    panel_launches = dict(K.LAUNCHES, **T.LAUNCHES, **PC.LAUNCHES,
+                          **POSE.LAUNCHES)
     trainer.raster_kw["layout"] = "tiled"
     same = [np.array_equal(frames[i], tiled_frames[i]) for i in range(32)]
     log(f"[main panel] {len(frames)} frames at {fps_p:.2f} fps, launches "
@@ -965,6 +995,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
             or panel_launches["composite_fwd"] != 0
             or panel_launches["bin_tiles"] != 32
             or panel_launches["preprocess_fwd"] != 32
+            or panel_launches["pose_skin_fwd"] != 2
             or any(K.STATE_WRITES.values())):
         raise AssertionError(f"panel animation launches {panel_launches}, "
                              "expected 32 composite_fwd_panel and 0 tiled")
@@ -1006,6 +1037,7 @@ def run(work: str, dev, smi: str, profile_dir: str | None) -> int:
     kernels.extend(run_train(work, dev, smi, profile_dir))
     kernels.append(binning_row(bin_anim))
     kernels.append(preprocess_row(pre_anim))
+    kernels.append(pose_row(pose_anim))
     # ---- 13 the scan micro-benchmark, 14 the backward's formulas
     kernels.extend(run_scan(dev, smi))
     kernels.extend(finish_form_rows(run_experiments(dev, smi)))
@@ -1448,6 +1480,7 @@ def edge_scene_bwd(dev, ekw, seed: int, gauss, cam, name) -> float:
 def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     from sings_tpu_torch.config.core import load_config
     from sings_tpu_torch.config.defaults import DEFAULTS
+    from sings_tpu_torch.kinematics import pose as POSE
     from sings_tpu_torch.losses.photometric import draw_step_randoms
     from sings_tpu_torch.ops import grid_grad as GG
     from sings_tpu_torch.ops import knn as KN
@@ -1515,6 +1548,15 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         "training frame 0", [x.detach() for x in leaves[:5]]
         + [trainer.buffers.alive > 0.5], trainer.camera,
         trainer.raster_kw["tile"], smi)
+    # ---- 23 the posing's kernels at the training frame
+    with torch.no_grad():
+        from sings_tpu_torch.model.avatar import get_gs_attrs
+
+        gs_train = get_gs_attrs(trainer.params, trainer.buffers, acfg)
+    POSE_STATS["train"] = check_pose(
+        "training frame 0", trainer, gs_train,
+        train_frames(trainer, int(batch0["idx"])), True, smi)
+    del gs_train
     ekw = dict(tile=16, chunk=128, max_span=8, max_pairs=None, main_width=4,
                tail_capacity=None, pair_cap=None)
     g, cam = random_scene(400, 380, 500, 1, dev)
@@ -1563,6 +1605,7 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
     KN.reset_launches()
     T.reset_launches()
     PC.reset_launches()
+    POSE.reset_launches()
     torch.cuda.synchronize()
     times, all_losses, all_skipped = [], [], []
     for c in range(2):
@@ -1578,8 +1621,9 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         all_skipped += skipped.cpu().tolist()
         state = (p, b, o)
     launches = dict(K.LAUNCHES, triplane_bwd=GG.LAUNCHES["triplane_bwd"],
-                    **T.LAUNCHES, **PC.LAUNCHES)
+                    **T.LAUNCHES, **PC.LAUNCHES, **POSE.LAUNCHES)
     BIN_STATS["launches_train"] = launches["bin_tiles"]
+    POSE_STATS["launches_train"] = {k: launches[k] for k in POSE.LAUNCHES}
     PRE_STATS["launches_train"] = (launches["preprocess_fwd"],
                                    launches["preprocess_bwd"])
     knn_launches = KN.LAUNCHES["knn_topk"]
@@ -1620,9 +1664,11 @@ def run_train(work: str, dev, smi: str, profile_dir: str | None) -> dict:
         raise AssertionError("xyz_grad_accum is zero on every visible slot")
     # one composite forward and backward a step, one triplane_bwd (the
     # triplane's backward), one binning and one preprocess forward (the
-    # forward's rasterize) and one preprocess backward
+    # forward's rasterize) and one preprocess backward; one of each pose
+    # kernel (avatar_forward and its backward)
     for name in ("composite_fwd", "composite_bwd", "triplane_bwd",
-                 "bin_tiles", "preprocess_fwd", "preprocess_bwd"):
+                 "bin_tiles", "preprocess_fwd", "preprocess_bwd",
+                 *POSE.LAUNCHES):
         if launches[name] != 2 * k:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {2 * k} steps, not {2 * k}")
@@ -2526,6 +2572,220 @@ def preprocess_row(anim: dict) -> dict:
         "train_frame_plain_bwd_ms": train["plain_bwd_ms"],
         "train_frame_autograd_ms": train["autograd_ms"],
         "bwd_bound_ms": train["bwd_bound_ms"], "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the posing's kernels (phase 23)
+
+# phase 23's check at the training frame and the posing's launches in
+# phases 5 and 9
+POSE_STATS = {}
+POSE_REPLACES = ("none: sings_tpu/kinematics/lbs.py::batch_rigid_transform"
+                 " and lbs_extra, sings_tpu/ops/rotations.py::"
+                 "matrix_to_quaternion (XLA, no pallas_call)")
+
+
+def chunk_frames(trainer, chunk: dict):
+    """kinematics/pose.py's Frames of a chunk of the animation's motion,
+    as avatar_forward_chunk builds them."""
+    from sings_tpu_torch.kinematics.pose import Frames
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=trainer.device)
+
+    b = chunk["body_pose"].shape[0]
+    et, er, es = (t(x) for x in chunk["ext_tfs"])
+    return Frames(go=t(chunk["global_orient"]).reshape(b, 3),
+                  bp=t(chunk["body_pose"]), go6=False, bp6=False,
+                  betas=trainer.params.betas, transl=t(chunk["transl"]),
+                  smpl_scale=t(chunk["smpl_scale"]).reshape(b),
+                  ext_tfs=(et.reshape(b, 3), er.reshape(b, 3, 3),
+                           es.reshape(b)))
+
+
+def train_frames(trainer, idx: int):
+    """The Frames of training frame idx as avatar_forward builds them: the
+    learned 6D rows, smpl_scale 1."""
+    from sings_tpu_torch.kinematics.pose import Frames
+
+    p = trainer.params
+    return Frames(go=p.global_orient[idx:idx + 1],
+                  bp=p.body_pose[idx:idx + 1], go6=True, bp6=True,
+                  betas=p.betas, transl=p.transl[idx:idx + 1],
+                  smpl_scale=torch.ones(1, device=trainer.device))
+
+
+def pose_bytes(n: int, nj: int, b: int, rotmat: bool) -> tuple:
+    """The posing's least traffic, forward and backward: the weights and
+    the gaussians read once, each output (or cotangent, and each
+    gradient) once."""
+    gauss = n * (4 * nj + 24 + (36 if rotmat else 0))
+    fwd = gauss + b * n * 40
+    bwd = gauss + b * n * 40 + n * (24 + (36 if rotmat else 0))
+    return fwd, bwd
+
+
+def check_pose(name: str, trainer, gs_attrs: dict, frames, backward: bool,
+               smi: str) -> dict:
+    """Phase 23 at one set of frames of the trainer's avatar: the kernels
+    (pose_gaussians) against the plain version on the same CUDA inputs,
+    forward (and, with backward, every gradient of a seeded loss that
+    the quaternions' sign leaves unchanged), bit for bit on a second
+    call, no host wait; times and byte bounds."""
+    from sings_tpu_torch.kinematics import pose as POSE
+    from sings_tpu_torch.kinematics.lbs import shaped_joints
+    from sings_tpu_torch.ops.rotations import rotation_6d_to_matrix
+
+    acfg = trainer.avatar_cfg
+    with torch.no_grad():
+        rotmat = (None if acfg.isotropic else
+                  rotation_6d_to_matrix(gs_attrs["rot6d_canon"]))
+    gauss = (gs_attrs["xyz_canon"].detach(), gs_attrs["scales"].detach(),
+             rotmat, trainer.buffers.lbs_weights)
+    tpl, inv = trainer.template, trainer.cache.inv_A_t2cano
+    b, n = frames.go.shape[0], gauss[0].shape[0]
+    nj = gauss[3].shape[1]
+    gen = torch.Generator(device=gauss[0].device).manual_seed(SEED)
+    cots = [torch.randn(b, n, k, device=gauss[0].device, generator=gen)
+            for k in (3, 4, 3)]
+
+    def plain(fr, *g):
+        return POSE.skin_plain(POSE.skeleton_plain(tpl, inv, fr), fr, *g)
+
+    def run(pose):
+        """pose's outputs and, with backward, the gradients of the loss
+        with respect to the pose rows, betas, xyz, scales, rotmat, transl
+        and smpl_scale."""
+        if not backward:
+            with torch.no_grad():
+                return pose(frames, *gauss), ()
+        xs = [frames.go, frames.bp, frames.betas, gauss[0], gauss[1],
+              gauss[2], frames.transl, frames.smpl_scale]
+        lv = [x if x is None else x.detach().clone().requires_grad_(True)
+              for x in xs]
+        fr = frames._replace(go=lv[0], bp=lv[1], betas=lv[2], transl=lv[6],
+                             smpl_scale=lv[7])
+        out = pose(fr, lv[3], lv[4], lv[5], gauss[3])
+        loss = ((out[0] * cots[0]).sum() + ((out[1] * cots[1]).sum(-1) ** 2
+                                            ).sum() + (out[2] * cots[2]).sum())
+        return [o.detach() for o in out], torch.autograd.grad(
+            loss, [x for x in lv if x is not None])
+
+    def kern(fr, *g):
+        return POSE.pose_gaussians(tpl, inv, fr, *g)
+
+    got, g_got = run(kern)
+    again, g_again = run(kern)
+    want, g_want = run(plain)
+    torch.cuda.synchronize()
+    errs = {}
+    for f, a, a2, w in zip(("xyz", "rotq", "scales"), got, again, want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"pose {name}: two calls differ in {f}")
+        if f == "rotq":
+            a = torch.where((a * w).sum(-1, keepdim=True) < 0, -a, a)
+        errs[f] = rel_err(a, w)
+        if not errs[f] < 1e-5:
+            raise AssertionError(f"pose {name}: {f} {errs[f]:.3e} from the "
+                                 "plain version's")
+    names = ("go", "bp", "betas", "xyz", "scales", "rotmat", "transl",
+             "smpl_scale")
+    names = [f for f in names if f != "rotmat" or rotmat is not None]
+    for f, a, a2, w in zip(names, g_got, g_again, g_want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"pose {name}: two backwards differ in d{f}")
+        errs["d" + f] = rel_err(a, w)
+        if not errs["d" + f] < 1e-4:
+            raise AssertionError(f"pose {name}: d{f} {errs['d' + f]:.3e} "
+                                 "from autograd's through the plain version")
+    if backward and frames.go6:
+        # the learned root rows entry by entry, each within 1e-3 of its
+        # own size and 0 where the plain version's is: at a half turn one
+        # entry is ~1e-9 of the others and Adam (eps 1e-15) steps it as
+        # far as any
+        k, w = g_got[0].double(), g_want[0].double()
+        zero = w == 0
+        errs["dgo_entries"] = float(((k - w).abs() / w.abs())[~zero].max()
+                                    ) if bool((~zero).any()) else 0.0
+        log(f"[pose] {name}: root rows' gradient, kernels "
+            f"{k.flatten().tolist()}, plain {w.flatten().tolist()}")
+        if not (torch.equal(k[zero], w[zero])
+                and errs["dgo_entries"] < 1e-3):
+            raise AssertionError(
+                f"pose {name}: the root rows' gradient entry by entry: "
+                f"{errs['dgo_entries']:.3e} of an entry's size")
+
+    def call():
+        return run(kern)
+
+    waits, launches = host_waits_in(call)
+    if waits or not launches:
+        raise AssertionError(f"pose {name}: host waits {waits} in a call "
+                             f"({len(launches)} launches)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def issue_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e3
+
+    # the joints of betas, regressed from the shaped template's vertices
+    # (lbs.shaped_joints, smpl_forward's bits) inside each call above
+    betas = frames.betas.detach().clone().requires_grad_(backward)
+
+    def joints():
+        j = shaped_joints(tpl, betas)
+        if backward:
+            torch.autograd.grad(j, betas, torch.ones_like(j))
+
+    joints_launches = len(host_waits_in(joints)[1])
+    fwd_bytes, bwd_bytes = pose_bytes(n, nj, b, rotmat is not None)
+    nbytes = fwd_bytes + (bwd_bytes if backward else 0)
+    out = {"ms": cuda_ms(call, n=50, warm=5),
+           "plain_ms": cuda_ms(lambda: run(plain), n=10, warm=2),
+           "host_ms": issue_ms(call, 50),
+           "bound_ms": nbytes / peaks().H100_BYTES_PER_S * 1e3,
+           "bytes": nbytes, "frames": b, "backward": backward, "errs": errs,
+           "joints_ms": cuda_ms(joints, n=50, warm=5),
+           "joints_launches": joints_launches}
+    what = "forward and backward" if backward else "forward"
+    log(f"[pose] {name}: {b} frames of {n} gaussians, {nj} joints, "
+        f"{what}: within {errs} (relative) of the plain version's; two calls "
+        f"bit for bit; no host wait in a call")
+    log(f"[timing] pose {name} ({what}): kernels {out['ms']:.4f} ms (host "
+        f"issue {out['host_ms']:.4f} ms), plain version "
+        f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+        f"({out['bytes']} bytes, {100 * out['bound_ms'] / out['ms']:.1f}% "
+        f"of it); of it the joints of betas {out['joints_ms']:.4f} ms, "
+        f"{joints_launches} launches | {smi}")
+    return out
+
+
+def pose_row(anim: dict) -> dict:
+    """The kernels-line row of phase 23: the animation chunk's times, the
+    training frame's beside them, the launches of phases 5 and 9."""
+    train = POSE_STATS["train"]
+    return {
+        "name": "pose", "route": "cuda",
+        "source": "sings_tpu_torch/csrc/pose.cu", "replaces": POSE_REPLACES,
+        "launches": POSE_STATS["launches_anim"],
+        "launches_train": POSE_STATS["launches_train"],
+        "max_abs_err": None, "ms": anim["ms"], "kernel_ms": anim["ms"],
+        "host_ms": anim["host_ms"], "plain_ms": anim["plain_ms"],
+        "bound_ms": anim["bound_ms"], "bound_by": "bytes",
+        "train_frame_ms": train["ms"], "train_frame_plain_ms":
+            train["plain_ms"], "train_frame_bound_ms": train["bound_ms"],
+        "joints_ms": anim["joints_ms"],
+        "train_frame_joints_ms": train["joints_ms"], "library_ms": None,
     }
 
 

@@ -25,6 +25,15 @@ def vertices2joints(j_regressor: torch.Tensor, vertices: torch.Tensor):
     return torch.einsum("jv,bvc->bjc", j_regressor, vertices)
 
 
+def shaped_joints(template, betas: torch.Tensor) -> torch.Tensor:
+    """The joints (J, 3) of betas (nb,) for a template with v_template,
+    shapedirs and j_regressor: J_reg (v_template + shapedirs betas), the
+    ops and shapes of lbs', so the same bits as smpl_forward's joints."""
+    v_shaped = template.v_template[None] + blend_shapes(
+        betas.reshape(1, -1), template.shapedirs)
+    return vertices2joints(template.j_regressor, v_shaped)[0]
+
+
 def batch_rodrigues(pose: torch.Tensor) -> torch.Tensor:
     """(..., 3) axis-angle -> (..., 3, 3)."""
     return axis_angle_to_matrix(pose)

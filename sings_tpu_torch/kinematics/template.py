@@ -18,7 +18,10 @@ def _t(x, device):
 
 
 class DeviceTemplate(NamedTuple):
-    """BodyTemplate arrays as tensors + python metadata."""
+    """BodyTemplate arrays as tensors + python metadata; and the joint
+    tables of kinematics/pose.py: the parents on the device and the
+    axis-angle of the joints past the body (full_pose without hand
+    coefficients: MANO's hand mean, or zeros), flat."""
 
     v_template: torch.Tensor
     shapedirs: torch.Tensor
@@ -30,10 +33,22 @@ class DeviceTemplate(NamedTuple):
     num_body_joints: int
     hands_components: torch.Tensor | None = None
     hands_mean: torch.Tensor | None = None
+    parent_index: torch.Tensor | None = None     # (J,) int32
+    rest_pose: torch.Tensor | None = None        # ((J - 1 - nbj) * 3,)
 
     @classmethod
     def from_host(cls, tpl: BodyTemplate, device="cpu") -> "DeviceTemplate":
         nbj = 23 if tpl.num_joints == 24 else 21
+        parents = np.asarray(tpl.parents)
+        nj = parents.shape[0]
+        if parents[0] != -1 or np.any(parents[1:] >= np.arange(1, nj)):
+            raise ValueError("template: parents[0] must be -1 and each "
+                             "joint's parent before it")
+        rest = nj - 1 - nbj
+        if tpl.hands_components is not None and rest == 30:
+            rest_pose = np.asarray(tpl.hands_mean, np.float32).reshape(-1)
+        else:
+            rest_pose = np.zeros(rest * 3, np.float32)
         return cls(
             v_template=_t(tpl.v_template, device),
             shapedirs=_t(tpl.shapedirs, device),
@@ -46,6 +61,8 @@ class DeviceTemplate(NamedTuple):
             hands_components=_t(getattr(tpl, "hands_components", None),
                                 device),
             hands_mean=_t(getattr(tpl, "hands_mean", None), device),
+            parent_index=_t(parents.astype(np.int32), device),
+            rest_pose=_t(rest_pose, device),
         )
 
 

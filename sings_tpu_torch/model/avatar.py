@@ -5,8 +5,10 @@ Per-gaussian arrays live in fixed-capacity buffers with an `alive` mask,
 exactly as in the JAX package, so a JAX checkpoint maps leaf for leaf.
 get_gs_attrs decodes the canonical attributes; avatar_forward poses one
 frame with every output the training step reads; avatar_forward_chunk
-poses B frames with batched LBS; initial_attr_targets and
-fit_initial_attrs pre-fit the decoders before training.
+poses B frames; both pose through kinematics/pose.py (the skeleton's
+joint transforms and the gaussians' skinning, no template vertex);
+initial_attr_targets and fit_initial_attrs pre-fit the decoders before
+training.
 """
 from __future__ import annotations
 
@@ -21,13 +23,12 @@ from ..fields.decoders import (
 )
 from ..fields.triplane import TriplaneConfig, init_triplane, triplane_features
 from ..kinematics.body_model import BodyTemplate
-from ..kinematics.lbs import lbs_extra
-from ..kinematics.template import CanonicalCache, DeviceTemplate, smpl_forward
+from ..kinematics.pose import Frames, pose_gaussians
+from ..kinematics.template import CanonicalCache, DeviceTemplate
 from ..mesh.ops import vertex_normals
 from ..ops.rotations import (
     axis_angle_to_rotation_6d, matrix_to_quaternion, matrix_to_rotation_6d,
-    quaternion_multiply, rotation_6d_to_axis_angle, rotation_6d_to_matrix,
-    rotation_matrix_from_vectors,
+    rotation_6d_to_matrix, rotation_matrix_from_vectors,
 )
 
 
@@ -267,42 +268,30 @@ def avatar_forward(params: AvatarParams, buffers: AvatarBuffers,
     n = xyz_canon.shape[0]
     rotmat_canon, rotq_canon = _canon_rotations(gs_attrs, cfg, n, xyz_canon)
 
-    if global_orient is None:
-        global_orient = rotation_6d_to_axis_angle(_frame_row(
-            params.global_orient, dataset_idx).reshape(1, 6)).reshape(3)
-    if body_pose is None:
-        body_pose = rotation_6d_to_axis_angle(_frame_row(
-            params.body_pose, dataset_idx).reshape(-1, 6)).reshape(-1)
+    # the frame's pose: the learned 6D rows of frame dataset_idx unless
+    # given (axis-angle)
+    go6, bp6 = global_orient is None, body_pose is None
+    go = (_frame_row(params.global_orient, dataset_idx) if go6
+          else global_orient)
+    bp = _frame_row(params.body_pose, dataset_idx) if bp6 else body_pose
     if betas is None:
         betas = params.betas
     if transl is None:
         transl = _frame_row(params.transl, dataset_idx)
-
-    smpl_out = smpl_forward(template, betas.reshape(1, -1),
-                            body_pose.reshape(1, -1),
-                            global_orient.reshape(1, 3),
-                            disable_posedirs=False)
-    a_cano2pose = smpl_out.A[0] @ cache.inv_A_t2cano
-    xyz_def, lbs_t = lbs_extra(a_cano2pose[None], xyz_canon[None],
-                               buffers.lbs_weights,
-                               disable_posedirs=cfg.disable_posedirs)
-    xyz_def = xyz_def[0]
-    lbs_t = lbs_t[0]
-    scales = gs_attrs["scales"]
-    if smpl_scale is not None:
-        s = smpl_scale.reshape(-1)[0]
-        xyz_def = xyz_def * s
-        scales = scales * s
-    xyz_def = xyz_def + transl.reshape(1, 3)
-    rotq_def = matrix_to_quaternion(lbs_t[:, :3, :3] @ rotmat_canon)
+    ext = None
     if ext_tfs is not None:
         etrans, erot, escale = ext_tfs
-        erot = erot.reshape(3, 3)
-        escale = escale.reshape(-1)[0]
-        xyz_def = etrans.reshape(1, 3) + escale * (xyz_def @ erot.T)
-        scales = escale * scales
-        rotq_def = quaternion_multiply(matrix_to_quaternion(erot)[None],
-                                       rotq_def)
+        ext = (etrans.reshape(1, 3), erot.reshape(1, 3, 3),
+               escale.reshape(-1)[:1])
+    frames = Frames(
+        go=go.reshape(1, -1), bp=bp.reshape(1, -1), go6=go6, bp6=bp6,
+        betas=betas.reshape(-1), transl=transl.reshape(1, 3),
+        smpl_scale=None if smpl_scale is None else smpl_scale.reshape(-1)[:1],
+        ext_tfs=ext)
+    xyz_def, rotq_def, scales = pose_gaussians(
+        template, cache.inv_A_t2cano, frames, xyz_canon, gs_attrs["scales"],
+        None if cfg.isotropic else rotmat_canon, buffers.lbs_weights)
+    xyz_def, rotq_def, scales = xyz_def[0], rotq_def[0], scales[0]
     out = {
         "xyz": xyz_def, "xyz_canon": xyz_canon,
         "xyz_offsets": gs_attrs["xyz_offsets"], "scales": scales,
@@ -331,30 +320,21 @@ def avatar_forward_chunk(params: AvatarParams, buffers: AvatarBuffers,
     """Batched animation forward: decode once (gs_attrs), pose B frames.
     shs and opacity are broadcast views over B (.expand), not copies."""
     b = body_pose.shape[0]
-    xyz_canon = gs_attrs["xyz_canon"]
-    n = xyz_canon.shape[0]
-    rotmat_canon, _ = _canon_rotations(gs_attrs, cfg, n, xyz_canon)
-
-    smpl_out = smpl_forward(
-        template, betas.reshape(1, -1).expand(b, betas.shape[-1]),
-        body_pose, global_orient, disable_posedirs=False)
-    a_cano2pose = smpl_out.A @ cache.inv_A_t2cano[None]
-    xyz_def, lbs_t = lbs_extra(a_cano2pose, xyz_canon[None].expand(b, n, 3),
-                               buffers.lbs_weights,
-                               disable_posedirs=cfg.disable_posedirs)
-    scales = gs_attrs["scales"][None].expand(b, n, 3)
-    if smpl_scale is not None:
-        xyz_def = xyz_def * smpl_scale[:, None, :]
-        scales = scales * smpl_scale[:, None, :]
-    xyz_def = xyz_def + transl[:, None, :]
-    rotq_def = matrix_to_quaternion(lbs_t[..., :3, :3] @ rotmat_canon[None])
+    rotmat_canon = (None if cfg.isotropic
+                    else rotation_6d_to_matrix(gs_attrs["rot6d_canon"]))
+    ext = None
     if ext_tfs is not None:
         etrans, erot, escale = ext_tfs
-        xyz_def = etrans[:, None, :] + escale[:, None, :] * torch.einsum(
-            "bxy,bny->bnx", erot, xyz_def)
-        scales = escale[:, None, :] * scales
-        rotq_def = quaternion_multiply(matrix_to_quaternion(erot)[:, None, :],
-                                       rotq_def)
+        ext = (etrans.reshape(b, 3), erot.reshape(b, 3, 3),
+               escale.reshape(b))
+    frames = Frames(
+        go=global_orient.reshape(b, 3), bp=body_pose, go6=False, bp6=False,
+        betas=betas.reshape(-1), transl=transl.reshape(b, 3),
+        smpl_scale=None if smpl_scale is None else smpl_scale.reshape(b),
+        ext_tfs=ext)
+    xyz_def, rotq_def, scales = pose_gaussians(
+        template, cache.inv_A_t2cano, frames, gs_attrs["xyz_canon"],
+        gs_attrs["scales"], rotmat_canon, buffers.lbs_weights)
     return {
         "xyz": xyz_def,
         "scales": scales,

@@ -24,8 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kinematics.lbs import (batch_rigid_transform, blend_shapes,
-                              vertices2joints)
+from ..kinematics.lbs import batch_rigid_transform, shaped_joints
 from ..kinematics.template import DeviceTemplate, full_pose, smpl_forward
 from ..ops.graphics import Camera, make_camera
 from ..ops.rasterizer.api import rasterize
@@ -155,9 +154,7 @@ def posed_smpl_joints(template: DeviceTemplate, params: dict,
     per-vertex skinning. return_head_rot: also the head joint's global
     rotation (F, 3, 3) for the rigid face-anchor reprojection."""
     f = params["body_pose"].shape[0]
-    v_shaped = template.v_template[None] + blend_shapes(
-        params["betas"].reshape(1, -1), template.shapedirs)
-    joints = vertices2joints(template.j_regressor, v_shaped)  # (1, J, 3)
+    joints = shaped_joints(template, params["betas"])[None]  # (1, J, 3)
     pose = full_pose(template, params["global_orient"], params["body_pose"])
     rot = axis_angle_to_matrix(pose.reshape(f, -1, 3))
     posed, transforms = batch_rigid_transform(

@@ -20,10 +20,9 @@ The step number is a Python int here (the JAX step traces it), so the
 warmup gates, the laplacian ramp and the opacity-norm switch are
 decided on the host; the non-finite guard stays on the device
 (torch.where), so it never makes the step wait for the card (the
-decode's copies of host data to the card do, e.g.
-kinematics/lbs.py::batch_rigid_transform's tables; the binning,
-ops/rasterizer/tiles.py::bin_gaussians, waits only in its plain
-version). Every random
+decode's copies of host data to the card do; the posing,
+kinematics/pose.py, and the binning, ops/rasterizer/tiles.py::
+bin_gaussians, wait only in their plain versions). Every random
 draw of a step comes from losses.photometric.draw_step_randoms; a step
 also takes the draws as an argument.
 
